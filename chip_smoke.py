@@ -1,25 +1,39 @@
-"""Drive the PyTorch/CUDA port's main path on one CUDA card and check it.
+"""Drive the PyTorch/CUDA port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
-The main path is the flagship wires commitment: PolynomialBatch.from_values
-on 234 polynomials of 2^18 values at rate_bits 3, cap height 4, no blinding
-(IFFT -> coset LDE in leaf order -> Poseidon leaf hash -> Merkle levels),
-then 28 query openings from the device-resident tree.  The script builds the
-kernels from csrc/ with nvcc, holds each kernel against its plain PyTorch
-version on the card (exact equality: integer arithmetic, tolerance 0), runs
-the main path at full width, holds the full-width result against the plain
-versions on subsets, verifies the openings, and prints one JSON line with
-each kernel's launches, time and bound.  Every phase prints a flushed line
-before it starts and when it ends; any failure raises and exits non-zero.
-The last line of standard output is the run's device summary.
+The main paths are two rounds of the flagship proof (the hash-tree circuit,
+234 wires, 2^18 rows, rate_bits 3, cap height 4, no blinding):
+
+* the wires commitment: PolynomialBatch.from_values on the 234 x 2^18
+  witness (IFFT -> coset LDE in leaf order -> Poseidon leaf hash -> Merkle
+  levels), then 28 query openings from the device-resident tree;
+* the quotient round (plonk/prover.py:quotient_round): partial products ->
+  Z/PP commitment -> the compiled constraint program over the 2^21-point
+  quotient coset -> coset INTT -> quotient commitment, plus the Z/PP
+  polynomials' natural-order coset LDE (ops/ntt.py:lde_coset_ntt).
+
+The script builds the kernels from csrc/ with nvcc (one process per
+source, in parallel), holds each kernel against its plain PyTorch version on
+the card (exact equality: integer arithmetic, tolerance 0), runs each path
+at full width with its launch counts set to 0 just before and read just
+after, holds the full-width results against the plain versions on subsets,
+verifies the openings, and prints one JSON line with each kernel's
+launches, time and bound.  Every phase prints a flushed line before it
+starts and when it ends; any failure raises and exits non-zero.  The last
+line of standard output is the run's device summary.
+
+It also traces one warm quotient round with torch.profiler and prints the
+device's busy and idle shares of it.
 
 It imports nothing of JAX or of the JAX package, needs one card, and writes
 nothing outside the kernels' build directory.
 """
 from __future__ import annotations
 
+import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -37,6 +51,14 @@ CAP_HEIGHT = 4
 NUM_QUERIES = 28
 WARM_RUNS = 3
 SEED = 0
+# The quotient round: the flagship circuit's compiled quotient program and
+# its dimensions, carried over from the JAX compiler as data.
+PROGRAM_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "plonky2_tpu_torch", "plonk", "programs",
+                            "hash_tree_wide_ecc.npz")
+QUOTIENT_CHUNK = 1 << 20        # lanes per K6 launch (sweep below, PERF.md)
+CHUNK_SWEEP = [1 << k for k in range(15, 22)]
+CHECK_LANES = 4096
 
 # Published H100 SXM peaks (NVIDIA data sheet; CUDA C Programming Guide,
 # arithmetic instruction throughput for compute capability 9.0: 64 32-bit
@@ -73,9 +95,19 @@ KERNELS = {
                            "plonky2_tpu/hash/poseidon_pallas.py:473"),
     "plk_ntt_cols_dit": ("K3 ntt_cols", "plonky2_tpu_torch/csrc/ntt.cu",
                          "plonky2_tpu/ops/ntt_pallas.py:95"),
+    "plk_ntt_cols_zero_tail": ("K4 ntt_cols_zero_tail",
+                               "plonky2_tpu_torch/csrc/ntt.cu",
+                               "plonky2_tpu/ops/ntt_pallas.py:141"),
     "plk_ntt_cols_dif": ("K5 ntt_cols_dif", "plonky2_tpu_torch/csrc/ntt.cu",
                          "plonky2_tpu/ops/ntt_pallas.py:243"),
+    "plk_constraint_program": ("K6 constraint_program",
+                               "plonky2_tpu_torch/csrc/constraint_program.cu",
+                               "plonky2_tpu/plonk/constraint_program.py:459"),
 }
+# the kernels each main path runs
+COMMIT_PATH = ("plk_hash_leaves", "plk_compress_level", "plk_ntt_cols_dit",
+               "plk_ntt_cols_dif")
+QUOTIENT_PATH = tuple(KERNELS)
 
 
 def log(msg: str) -> None:
@@ -192,15 +224,34 @@ def launch_cost(name: str, args) -> tuple:
     if name == "plk_compress_level":
         m = a["m"]
         return 8 * (8 * m + 4 * m), m * PERM_MULS
+    if name == "plk_constraint_program":
+        # the program's real 64x64 products on every lane; its inputs
+        # read once and outputs written once, plus the wave stream and bank
+        prog, _ = flagship_program()
+        check(a["n_waves"] == prog.n_waves, "K6 ran another program")
+        C, n_out = a["C"], a["n_out"]
+        nbytes = (8 * (prog.n_inputs + n_out) * C
+                  + prog.n_waves * (4 + 16 * a["W"])
+                  + 8 * len(prog.bank_sids) + 4 * n_out)
+        return nbytes, prog.n_mul_ops() * FIELD_MUL_MULS * C
+    # column NTTs: K4's first rate_bits stages only copy rows
     B, n2, log_n1 = a["B"], a["n2"], a["log_n1"]
     n1 = 1 << log_n1
-    q = a.get("q", n1)
+    r = a.get("rate_bits", 0)
+    q = a.get("q", n1 >> r)
     pre, post = a["pre"] is not None, a["post"] is not None
     nbytes = 8 * (B * q * n2 + B * n1 * n2 + n1
                   + (q * n2 if pre else 0) + (n1 * n2 if post else 0))
-    muls = B * (n1 // 2) * n2 * log_n1 + B * n2 * ((q if pre else 0)
-                                                   + (n1 if post else 0))
+    muls = B * (n1 // 2) * n2 * (log_n1 - r) + B * n2 * (
+        (q if pre else 0) + (n1 if post else 0))
     return nbytes, muls * FIELD_MUL_MULS
+
+
+@functools.lru_cache(maxsize=1)
+def flagship_program():
+    """(ConstraintProgram, CircuitShape) of the flagship circuit."""
+    from plonky2_tpu_torch.plonk import constraint_program as cp
+    return cp.load(PROGRAM_PATH)
 
 
 def nvidia_smi_line() -> str:
@@ -235,7 +286,11 @@ def phase_kernels(dev) -> dict:
     Returns per kernel: max_abs_err, and kernel/plain ms at one shape."""
     from plonky2_tpu_torch.hash import poseidon as pos
     from plonky2_tpu_torch.hash import poseidon_cuda as pc
+    from plonky2_tpu_torch.field.convert import from_u64
+    from plonky2_tpu_torch.field.goldilocks import P
     from plonky2_tpu_torch.ops import ntt_cuda as nc
+    from plonky2_tpu_torch.plonk import constraint_program as cp
+    from plonky2_tpu_torch.plonk import constraint_program_cuda as cpc
     rng = np.random.default_rng(SEED + 1)
     res = {}
 
@@ -285,78 +340,130 @@ def phase_kernels(dev) -> dict:
         compare("plk_ntt_cols_dif", f"B=4 n1={n1} tail={tail} n2=512 pre+post",
                 lambda: nc.ntt_cols_dif_cuda(a, tail, pre=pre, post=post),
                 lambda: nc.ntt_cols_dif(a, tail, pre=pre, post=post))
+    for q, r, n2, boundary in ((128, 3, 512, False), (128, 3, 512, True),
+                               (1, 3, 512, False), (1024, 1, 64, False),
+                               (512, 0, 64, False)):
+        make = boundary_field if boundary else rand_field
+        a = make(rng, (4, q, n2), dev)
+        pre = rand_field(rng, (q, n2), dev)
+        post = rand_field(rng, (q << r, n2), dev)
+        label = f"B=4 q={q} r={r} n2={n2}" + (" boundary" if boundary else "")
+        compare("plk_ntt_cols_zero_tail", label,
+                lambda: nc.ntt_cols_zero_tail_cuda(a, r),
+                lambda: nc.ntt_cols_zero_tail(a, r),
+                timed=q == 128 and not boundary)
+        compare("plk_ntt_cols_zero_tail", label + " pre+post",
+                lambda: nc.ntt_cols_zero_tail_cuda(a, r, pre=pre, post=post),
+                lambda: nc.ntt_cols_zero_tail(a, r, pre=pre, post=post))
+
+    prog, _ = flagship_program()
+    draw = lambda k: [int(x) for x in rng.integers(  # noqa: E731
+        0, P, size=k, dtype=np.uint64)]
+    bank = from_u64(prog.scalar_bank(draw(prog.n_scalar_inputs)), dev)
+    for label, make in (("random", rand_field), ("boundary", boundary_field)):
+        inputs = make(rng, (prog.n_inputs, CHECK_LANES), dev)
+        compare("plk_constraint_program",
+                f"flagship program, {CHECK_LANES} lanes, {label} inputs",
+                lambda: cpc.run_program_cuda(prog, inputs, bank),
+                lambda: prog.run_plain(inputs, bank),
+                timed=label == "random")
+    for W in (8, 16, 32):
+        small = cp.random_program(rng, wave_width=W, n_regs=3 * W)
+        check(cp.in_wave_reuse(small), "random program reuses no register")
+        inputs = rand_field(rng, (small.n_inputs, 1000), dev)
+        sbank = from_u64(small.scalar_bank(draw(2)), dev)
+        compare("plk_constraint_program",
+                f"random program W={W}, in-wave register reuse",
+                lambda: cpc.run_program_cuda(small, inputs, sbank),
+                lambda: small.run_plain(inputs, sbank))
     return res
 
 
-def reset_launch_counts():
+def wrappers() -> dict:
+    """C entry -> the wrapper that launches it (and counts launches)."""
     from plonky2_tpu_torch.hash import poseidon_cuda as pc
     from plonky2_tpu_torch.ops import ntt_cuda as nc
-    for w in (pc.hash_leaves_cols_cuda, pc.compress_level_cuda,
-              nc.ntt_cols_cuda, nc.ntt_cols_dif_cuda):
+    from plonky2_tpu_torch.plonk import constraint_program_cuda as cpc
+    return {"plk_hash_leaves": pc.hash_leaves_cols_cuda,
+            "plk_compress_level": pc.compress_level_cuda,
+            "plk_ntt_cols_dit": nc.ntt_cols_cuda,
+            "plk_ntt_cols_zero_tail": nc.ntt_cols_zero_tail_cuda,
+            "plk_ntt_cols_dif": nc.ntt_cols_dif_cuda,
+            "plk_constraint_program": cpc.run_program_cuda}
+
+
+def reset_launch_counts():
+    for w in wrappers().values():
         w.launches = 0
 
 
 def read_launch_counts() -> dict:
-    from plonky2_tpu_torch.hash import poseidon_cuda as pc
-    from plonky2_tpu_torch.ops import ntt_cuda as nc
-    return {"plk_hash_leaves": pc.hash_leaves_cols_cuda.launches,
-            "plk_compress_level": pc.compress_level_cuda.launches,
-            "plk_ntt_cols_dit": nc.ntt_cols_cuda.launches,
-            "plk_ntt_cols_dif": nc.ntt_cols_dif_cuda.launches}
+    return {entry: w.launches for entry, w in wrappers().items()}
 
 
-def phase_full_width(dev, rng):
-    """The main path at full width: one cold run (counted), WARM_RUNS warm
-    runs (timed per kernel), then the result against the plain versions on
-    subsets."""
+def timed_path(run, path, label, keep=lambda out: None):
+    """One cold run of a main path with the launch counts set to 0 just
+    before and read just after, then WARM_RUNS warm runs timed per kernel.
+    `run(kept)` gets what `keep` takes from the previous run's result
+    (None at first); the rest of that result is freed first."""
     import torch
-    from plonky2_tpu_torch.fri.oracle import PolynomialBatch
-    n = 1 << LOG_N
-    values = rand_field(rng, (NUM_POLYS, n), dev)
-    commit = lambda: PolynomialBatch.from_values(  # noqa: E731
-        values, RATE_BITS, False, CAP_HEIGHT, device=dev)
-
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t = time.perf_counter()
-    batch = commit()
+    out = run(None)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t
     launches = read_launch_counts()
-    peak = torch.cuda.max_memory_allocated(dev)
-    log(f"  cold run {cold_s:.3f} s; launches {launches}; peak "
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {label} cold run {cold_s:.3f} s; launches {launches}; peak "
         f"max_memory_allocated {peak / 2**30:.2f} GiB")
-    for entry, count in launches.items():
-        check(count > 0, f"{entry} was not launched on the main path")
-
+    for entry in path:
+        check(launches[entry] > 0, f"{entry} was not launched on the {label}")
     warm_s, per_kernel, recs = [], [], None
     for _ in range(WARM_RUNS):
-        del batch
+        kept = keep(out)
+        del out
         with KernelRecorder() as rec:
             t = time.perf_counter()
-            batch = commit()
+            out = run(kept)
             torch.cuda.synchronize()
             warm_s.append(time.perf_counter() - t)
         per_kernel.append(rec.ms_by_kernel())
         recs = rec.records
-    log(f"  warm runs (s): {', '.join(f'{s:.4f}' for s in warm_s)}")
+    log(f"  {label} warm runs (s): {', '.join(f'{s:.4f}' for s in warm_s)}")
     kernel_ms = {k: float(np.median([r[k] for r in per_kernel]))
                  for k in per_kernel[0]}
     for k, ms in kernel_ms.items():
         log(f"  {KERNELS[k][0]}: {ms:.3f} ms over {launches[k]} launches "
-            "(median of warm runs)")
+            f"(median of warm runs; {100 * ms / 1e3 / np.median(warm_s):.1f}% "
+            "of the warm wall)")
     cost = {}
     for name, args, _, _ in recs:
         b, ops = launch_cost(name, args)
         c = cost.setdefault(name, [0, 0])
         c[0] += b
         c[1] += ops
+    return out, {"cold_s": cold_s, "warm_s": warm_s, "launches": launches,
+                 "kernel_ms": kernel_ms, "cost": cost, "peak_bytes": peak}
 
+
+def phase_full_width(dev, rng):
+    """The commitment path at full width: one cold run (counted),
+    WARM_RUNS warm runs (timed per kernel), then the result against the
+    plain versions on subsets."""
+    from plonky2_tpu_torch.fri.oracle import PolynomialBatch
+    n = 1 << LOG_N
+    values = rand_field(rng, (NUM_POLYS, n), dev)
+
+    def run(_):
+        return PolynomialBatch.from_values(values, RATE_BITS, False,
+                                           CAP_HEIGHT, device=dev)
+
+    batch, res = timed_path(run, COMMIT_PATH, "commit path")
     check_full_width(batch, values, rng)
-    return {"batch": batch, "cold_s": cold_s, "warm_s": warm_s,
-            "launches": launches, "kernel_ms": kernel_ms, "cost": cost,
-            "peak_bytes": peak}
+    res.update(batch=batch, values=values)
+    return res
 
 
 def check_full_width(batch, values, rng):
@@ -425,23 +532,248 @@ def phase_openings(batch, rng):
     log("  leaf with one changed element: rejected")
 
 
-def kernels_line(kern, full, smi) -> dict:
+def phase_quotient(dev, rng, full):
+    """The quotient round at full width on the flagship shapes, fed the
+    commitment path's witness and wires commitment, a commitment to 84
+    random constants-sigmas polynomials, random sigmas and random
+    challenges (the circuit's real ones need its witness generators, which
+    are not ported).  The kernels compute the same function on any inputs."""
+    from plonky2_tpu_torch.field.goldilocks import P
+    from plonky2_tpu_torch.fri.oracle import PolynomialBatch
+    from plonky2_tpu_torch.ops import ntt
+    from plonky2_tpu_torch.plonk.prover import quotient_round
+    prog, shape = flagship_program()
+    check((shape.num_wires, shape.degree_bits, shape.rate_bits,
+           shape.cap_height, shape.zero_knowledge)
+          == (NUM_POLYS, LOG_N, RATE_BITS, CAP_HEIGHT, False),
+          f"program file shape {shape}")
+    n = 1 << LOG_N
+    values, wires_batch = full["values"], full["batch"]
+    cs_batch = PolynomialBatch.from_values(
+        rand_field(rng, (shape.num_preprocessed_polys, n), dev), RATE_BITS,
+        False, CAP_HEIGHT, device=dev)
+    sigmas = rand_field(rng, (shape.num_routed_wires, n), dev)
+    draw = lambda k: [int(x) for x in rng.integers(  # noqa: E731
+        0, P, size=k, dtype=np.uint64)]
+    nch = shape.num_challenges
+    challenges = (draw(4), draw(nch), draw(nch), draw(nch))
+    log(f"  program: {prog.n_inputs} inputs, {prog.n_regs} registers, "
+        f"{prog.n_waves} waves x {prog.wave_width}, {prog.n_ops} real ops "
+        f"({prog.n_mul_ops()} with a product); chunk {QUOTIENT_CHUNK} lanes")
+
+    def run(quotient):
+        out = quotient_round(values, wires_batch, sigmas, shape, prog,
+                             cs_batch, *challenges, quotient=quotient,
+                             chunk=QUOTIENT_CHUNK, device=dev)
+        nat = ntt.lde_coset_ntt(out.zspp_batch.coeffs_dev, RATE_BITS)
+        return out, nat
+
+    (out, nat), res = timed_path(run, QUOTIENT_PATH, "quotient round",
+                                 keep=lambda o: o[0].quotient)
+    res["stages_ms"] = time_stages(out, values, wires_batch, sigmas, shape,
+                                   challenges)
+    res["profile"] = profile_run(lambda: run(out.quotient))
+    sweep_chunks(out, wires_batch, challenges)
+    check_quotient(out, nat, values, wires_batch, sigmas, shape, prog,
+                   challenges, rng)
+    return res
+
+
+def time_stages(out, values, wires_batch, sigmas, shape, challenges):
+    """The quotient round's stages one by one, each timed with CUDA events
+    on a warm context (the same calls quotient_round makes)."""
+    from plonky2_tpu_torch.fri.oracle import PolynomialBatch
+    from plonky2_tpu_torch.ops import ntt
+    from plonky2_tpu_torch.ops.partial_products import \
+        device_partial_products
+    q = out.quotient
+    _, betas, gammas, _ = challenges
+    stages = {
+        "partial products (plain torch)": lambda: device_partial_products(
+            values, sigmas, betas, gammas, shape),
+        "Z/PP commitment": lambda: PolynomialBatch.from_values(
+            out.zspp_values, RATE_BITS, False, CAP_HEIGHT,
+            device=values.device),
+        "gather + K6": lambda: q.evaluate(wires_batch, out.zspp_batch,
+                                          *challenges),
+        "coset INTT": lambda: ntt.coset_intt(out.quotient_values),
+        "quotient commitment": lambda: PolynomialBatch.from_coeffs(
+            out.quotient_coeffs.reshape(shape.num_quotient_polys,
+                                        shape.degree), RATE_BITS, False,
+            CAP_HEIGHT, device=values.device),
+        "natural-order LDE of Z/PP (K4)": lambda: ntt.lde_coset_ntt(
+            out.zspp_batch.coeffs_dev, RATE_BITS),
+    }
+    res = {}
+    for name, fn in stages.items():
+        res[name], _ = cuda_ms(fn)
+        log(f"  stage {name}: {res[name]:.3f} ms")
+    return res
+
+
+def profile_run(fn) -> dict:
+    """Device busy time (sum of kernel times from torch.profiler) against
+    the wall time of one traced fn()."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    # rows of work that ran on the card (kernels, copies, memsets); the
+    # host-side ops that launched them are not counted again
+    dev_ms = lambda e: getattr(  # noqa: E731
+        e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)
+    ) / 1e3
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy_ms = sum(dev_ms(e) for e in events)
+    for e in sorted(events, key=lambda e: -dev_ms(e))[:12]:
+        log(f"  profile: {dev_ms(e):9.3f} ms device  {e.count:6d} calls  "
+            f"{e.key[:90]}")
+    log(f"  profile: wall {wall_ms:.3f} ms (traced), device busy "
+        f"{busy_ms:.3f} ms, idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}" if busy_ms else
+        "  profile: torch.profiler recorded no device time")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms}
+
+
+def sweep_chunks(out, wires_batch, challenges):
+    """Time the quotient's gather + K6 at each chunk size (CUDA events)."""
+    q = out.quotient
+    for C in CHUNK_SWEEP:
+        ms, vals = cuda_ms(lambda: q.evaluate(wires_batch, out.zspp_batch,
+                                              *challenges, chunk=C))
+        check(bool((vals == out.quotient_values).all()),
+              f"chunk {C} changed the quotient values")
+        del vals
+        log(f"  gather + K6 over the 2^21 lanes in chunks of {C}: {ms:.3f} ms")
+
+
+def check_quotient(out, nat, values, wires_batch, sigmas, shape, prog,
+                   challenges, rng):
+    """Hold the quotient round's results against plain versions."""
+    import torch
+    from plonky2_tpu_torch.field import fft
+    from plonky2_tpu_torch.utils.bits import bit_reverse_indices
+    dev = values.device
+    q = out.quotient
+    N = q.lde_size
+    check(tuple(out.quotient_values.shape) == (shape.num_challenges, N),
+          "quotient values shape")
+    check(tuple(out.quotient_batch.leaves_dev.shape)
+          == (shape.num_quotient_polys, shape.degree << RATE_BITS),
+          "quotient leaves shape")
+
+    # K6 on lanes of the first and the last chunk, against the plain
+    # interpreter on the same gathered inputs
+    lanes = torch.cat([torch.arange(0, CHECK_LANES),
+                       torch.arange(N - CHECK_LANES, N)]).to(dev)
+    inputs = q.gather(lanes, wires_batch, out.zspp_batch)
+    bank = q.scalar_bank(*challenges)
+    want = prog.run_plain(inputs, bank)
+    check(max_abs_err(want, out.quotient_values[:, lanes]) == 0,
+          "K6 differs from the plain interpreter at full width")
+    log(f"  K6 on {2 * CHECK_LANES} lanes of the first and last chunks: "
+        "equal to the plain interpreter")
+
+    # K3 (coset INTT): the plain coset NTT of the coefficients gives back
+    # the values
+    check(max_abs_err(fft.coset_fft(out.quotient_coeffs),
+                      out.quotient_values) == 0,
+          "plain coset NTT of the quotient coefficients differs")
+    log("  plain coset NTT of the 2 x 2^21 quotient coefficients: equal to "
+        "the values")
+
+    # the quotient commitment: two chunk polynomials' LDE rows
+    m = shape.degree << RATE_BITS
+    perm = torch.from_numpy(bit_reverse_indices(m)).to(dev)
+    rows = torch.tensor([0, shape.num_quotient_polys - 1], device=dev)
+    coeffs = out.quotient_batch.coeffs_dev[rows]
+    padded = torch.cat([coeffs, coeffs.new_zeros((2, m - shape.degree))], 1)
+    check(max_abs_err(fft.coset_fft(padded)[:, perm],
+                      out.quotient_batch.leaves_dev[rows]) == 0,
+          "quotient leaf rows differ from the plain coset LDE")
+    log("  2 quotient chunk polynomials: plain LDE equals the leaf rows")
+
+    # K4 (natural order) against K5 (leaf order) on the 20 Z/PP polynomials
+    check(bool((nat == out.zspp_batch.leaves_dev[:, perm]).all()),
+          "natural-order LDE (K4) differs from the leaf-order LDE (K5)")
+    log(f"  natural-order LDE (K4) of the {nat.shape[0]} Z/PP polynomials: "
+        "equal to the bit reversal of their leaves (K5)")
+
+    check_partial_products(out.zspp_values, values, sigmas, shape,
+                           challenges, rng)
+
+
+def check_partial_products(zspp, values, sigmas, shape, challenges, rng):
+    """Z/PP values on sampled columns against Python integer arithmetic:
+    Z(0) = 1, Z(j + 1) = Z(j) * prod_i numer_i(j) / denom_i(j), and each
+    partial product is Z(j) times the cumulative chunk product."""
+    import torch
+    from plonky2_tpu_torch.field.convert import to_u64
+    from plonky2_tpu_torch.field.goldilocks import P, primitive_root_of_unity
+    _, betas, gammas, _ = challenges
+    n, nr = shape.degree, shape.num_routed_wires
+    qdf, npp, nch = (shape.quotient_degree_factor,
+                     shape.num_partial_products, shape.num_challenges)
+    cols = np.sort(rng.choice(n - 1, 64, replace=False))
+    c = torch.from_numpy(cols).to(values.device)
+    w = to_u64(values[:nr][:, c]).tolist()
+    s = to_u64(sigmas[:, c]).tolist()
+    z = to_u64(zspp[:, c]).tolist()
+    z_next = to_u64(zspp[:nch][:, c + 1]).tolist()
+    check(bool((zspp[:nch, 0] == 1).all()), "Z(0) != 1")
+    g = primitive_root_of_unity(shape.degree_bits)
+    for ch in range(nch):
+        beta, gamma = betas[ch], gammas[ch]
+        for j, col in enumerate(cols.tolist()):
+            x = pow(g, col, P)
+            cum, acc = [], 1
+            for start in range(0, nr, qdf):
+                num = den = 1
+                for i in range(start, min(start + qdf, nr)):
+                    num = num * (w[i][j] + beta * shape.k_is[i] * x
+                                 + gamma) % P
+                    den = den * (w[i][j] + beta * s[i][j] + gamma) % P
+                acc = acc * num * pow(den, P - 2, P) % P
+                cum.append(acc)
+            check(z_next[ch][j] == z[ch][j] * cum[-1] % P,
+                  f"Z step at column {col}, challenge {ch}")
+            for i in range(npp):
+                check(z[nch + ch * npp + i][j] == z[ch][j] * cum[i] % P,
+                      f"partial product {i} at column {col}")
+    log(f"  Z/PP values on {len(cols)} sampled columns: equal to integer "
+        "arithmetic")
+
+
+def kernels_line(kern, paths, smi) -> dict:
+    """Each kernel's numbers summed over the main paths, with the split."""
     out = []
     for entry, (name, source, replaces) in KERNELS.items():
-        nbytes, muls = full["cost"][entry]
+        nbytes = sum(p["cost"].get(entry, (0, 0))[0] for p in paths.values())
+        muls = sum(p["cost"].get(entry, (0, 0))[1] for p in paths.values())
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = muls / INT32_MULS_PER_S * 1e3
+        launches = {k: p["launches"][entry] for k, p in paths.items()}
+        ms = {k: p["kernel_ms"].get(entry, 0.0) for k, p in paths.items()}
+        check(sum(launches.values()) > 0, f"{entry} was never launched")
         k = kern[entry]
         out.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": full["launches"][entry],
-            "max_abs_err": k["max_abs_err"], "ms": full["kernel_ms"][entry],
+            "replaces": replaces, "launches": sum(launches.values()),
+            "max_abs_err": k["max_abs_err"], "ms": sum(ms.values()),
             "plain_ms": k["plain_ms"], "plain_shape": k["plain_shape"],
             "kernel_ms_at_plain_shape": k["kernel_ms_at_plain_shape"],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes": nbytes, "bound_int32_muls": muls,
-            "library_ms": None})
+            "library_ms": None, "launches_by_path": launches,
+            "ms_by_path": ms})
     return {"kernels": out, "card": smi}
 
 
@@ -464,8 +796,11 @@ def main() -> int:
         full = phase_full_width(dev, rng)
     with phase(f"5 openings ({NUM_QUERIES} queries)"):
         phase_openings(full["batch"], rng)
-    with phase("6 kernels line"):
-        line = kernels_line(kern, full, smi)
+    with phase("6 quotient round (full width: Z/PP 20 x 2^18, quotient "
+               "coset 2^21)"):
+        quot = phase_quotient(dev, rng, full)
+    with phase("7 kernels line"):
+        line = kernels_line(kern, {"commit": full, "quotient": quot}, smi)
     print(json.dumps(line), flush=True)
     print(f"total seconds: {time.perf_counter() - T0:.1f}", flush=True)
     print(json.dumps({"ok": True, "device": {

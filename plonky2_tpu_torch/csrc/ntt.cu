@@ -1,9 +1,16 @@
-// Kernels K3 and K5: radix-2 NTTs down the columns of a (B, n1, n2) batch.
+// Kernels K3, K4 and K5: radix-2 NTTs down the columns of a (B, n1, n2)
+// batch.
 //
 // K3 replaces plonky2_tpu/ops/ntt_pallas.py:ntt_cols_pallas (DIT, natural
 // order in and out; the inverse swaps in inverse twiddles and does not scale
-// by 1/n).  K5 replaces ntt_pallas.py:ntt_cols_dif_pallas (DIF, natural order
-// in, bit-reversed order out, optional implied zero tail of n1 - q rows).
+// by 1/n).  K4 replaces ntt_pallas.py:ntt_cols_zero_tail_pallas: K3 on a
+// (B, n1 / 2^r, n2) prefix whose n1 - n1 / 2^r tail rows are implied zeros.
+// In bit-reversed load order prefix row i lands on row rev(i) * 2^r and the
+// zeros on the rows between, so the first r stages only copy each prefix
+// value to the 2^r rows that follow it (fft.rs:188-219): K4 writes those
+// copies as it loads and starts at stage r.  K5 replaces
+// ntt_pallas.py:ntt_cols_dif_pallas (DIF, natural order in, bit-reversed
+// order out, optional implied zero tail of n1 - q rows).
 // Both compute what the TPU kernels compute; the roll/select butterflies and
 // lane tiles were how the TPU did it.  The bit reversal that the JAX caller
 // applies before ntt_cols_pallas happens here as the load's row index.
@@ -32,8 +39,8 @@ template <bool DIF>
 __global__ void ntt_cols_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
                                 const uint64_t* __restrict__ twiddles,
                                 const uint64_t* __restrict__ pre,
-                                const uint64_t* __restrict__ post, int q, int log_n1,
-                                int64_t n2, int log_t) {
+                                const uint64_t* __restrict__ post, int q, int r,
+                                int log_n1, int64_t n2, int log_t) {
   extern __shared__ uint64_t smem[];
   const int n1 = 1 << log_n1;
   const int T = 1 << log_t;
@@ -45,22 +52,33 @@ __global__ void ntt_cols_kernel(const uint64_t* __restrict__ in, uint64_t* __res
   uint64_t* dst = out + b * (int64_t)n1 * n2 + j0;
 
   for (int k = threadIdx.x; k < n1; k += blockDim.x) tw[k] = twiddles[k];
-  for (int k = threadIdx.x; k < n1 * T; k += blockDim.x) {
-    int i = k >> log_t, jj = k & (T - 1);
-    uint64_t v = 0;
-    if (i < q) {
-      v = src[(int64_t)i * n2 + jj];
-      if (pre) v = gl::mul(v, pre[(int64_t)i * n2 + j0 + jj]);
+  if (DIF) {
+    for (int k = threadIdx.x; k < n1 * T; k += blockDim.x) {
+      int i = k >> log_t, jj = k & (T - 1);
+      uint64_t v = 0;
+      if (i < q) {
+        v = src[(int64_t)i * n2 + jj];
+        if (pre) v = gl::mul(v, pre[(int64_t)i * n2 + j0 + jj]);
+      }
+      tile[i * T + jj] = v;
     }
-    int row = i;
-    if (!DIF && log_n1) row = (int)(__brev((unsigned)i) >> (32 - log_n1));
-    tile[row * T + jj] = v;
+  } else {
+    // q = n1 >> r prefix rows; row i goes to bit-reversed row rev_q(i) << r
+    // and, after the r copy-only stages, to the 2^r rows from there on
+    const int log_q = log_n1 - r;
+    for (int k = threadIdx.x; k < q * T; k += blockDim.x) {
+      int i = k >> log_t, jj = k & (T - 1);
+      uint64_t v = src[(int64_t)i * n2 + jj];
+      if (pre) v = gl::mul(v, pre[(int64_t)i * n2 + j0 + jj]);
+      int row = log_q ? (int)(__brev((unsigned)i) >> (32 - log_q)) << r : 0;
+      for (int c = 0; c < (1 << r); c++) tile[(row + c) * T + jj] = v;
+    }
   }
   __syncthreads();
 
   const int pairs = (n1 >> 1) * T;
-  for (int step = 0; step < log_n1; step++) {
-    const int s = DIF ? log_n1 - 1 - step : step;
+  for (int step = 0; step < log_n1 - r; step++) {
+    const int s = DIF ? log_n1 - 1 - step : step + r;
     const int half = 1 << s;
     for (int k = threadIdx.x; k < pairs; k += blockDim.x) {
       int jj = k & (T - 1), p = k >> log_t;
@@ -92,7 +110,7 @@ __global__ void ntt_cols_kernel(const uint64_t* __restrict__ in, uint64_t* __res
 
 template <bool DIF>
 int launch(const void* in, void* out, const void* twiddles, const void* pre, const void* post,
-           long long B, long long q, int log_n1, long long n2, int log_t, int device,
+           long long B, long long q, int r, int log_n1, long long n2, int log_t, int device,
            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -105,7 +123,7 @@ int launch(const void* in, void* out, const void* twiddles, const void* pre, con
   dim3 grid((unsigned)(n2 >> log_t), (unsigned)B);
   ntt_cols_kernel<DIF><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const uint64_t*)in, (uint64_t*)out, (const uint64_t*)twiddles, (const uint64_t*)pre,
-      (const uint64_t*)post, (int)q, log_n1, (int64_t)n2, log_t);
+      (const uint64_t*)post, (int)q, r, log_n1, (int64_t)n2, log_t);
   return (int)cudaGetLastError();
 }
 
@@ -114,12 +132,21 @@ int launch(const void* in, void* out, const void* twiddles, const void* pre, con
 extern "C" int plk_ntt_cols_dit(const void* in, void* out, const void* twiddles, const void* pre,
                                 const void* post, long long B, int log_n1, long long n2,
                                 int log_t, int device, void* stream) {
-  return launch<false>(in, out, twiddles, pre, post, B, 1LL << log_n1, log_n1, n2, log_t, device,
-                       stream);
+  return launch<false>(in, out, twiddles, pre, post, B, 1LL << log_n1, 0, log_n1, n2, log_t,
+                       device, stream);
+}
+
+extern "C" int plk_ntt_cols_zero_tail(const void* in, void* out, const void* twiddles,
+                                      const void* pre, const void* post, long long B,
+                                      int rate_bits, int log_n1, long long n2, int log_t,
+                                      int device, void* stream) {
+  if (rate_bits < 0 || rate_bits > log_n1) return (int)cudaErrorInvalidValue;
+  return launch<false>(in, out, twiddles, pre, post, B, 1LL << (log_n1 - rate_bits), rate_bits,
+                       log_n1, n2, log_t, device, stream);
 }
 
 extern "C" int plk_ntt_cols_dif(const void* in, void* out, const void* twiddles, const void* pre,
                                 const void* post, long long B, long long q, int log_n1,
                                 long long n2, int log_t, int device, void* stream) {
-  return launch<true>(in, out, twiddles, pre, post, B, q, log_n1, n2, log_t, device, stream);
+  return launch<true>(in, out, twiddles, pre, post, B, q, 0, log_n1, n2, log_t, device, stream);
 }

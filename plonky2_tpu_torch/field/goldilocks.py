@@ -2,8 +2,9 @@
 
 The port's own copy of what it needs from plonky2_tpu/field/goldilocks.py:
 p = 2^64 - 2^32 + 1, EPSILON = 2^32 - 1 = 2^64 mod p, two-adicity 32, the
-canonical two-adic generator, and the host-side ``mul``/``powers`` used to
-build twiddle and shift tables.  Arrays hold canonical values in [0, p).
+canonical two-adic generator, and the host-side ``sub``/``mul``/``inverse``/
+``powers``/``two_adic_subgroup`` used to build twiddle, shift and domain
+tables.  Arrays hold canonical values in [0, p).
 """
 from __future__ import annotations
 
@@ -19,6 +20,14 @@ _U64 = np.uint64
 _M32 = _U64(0xFFFFFFFF)
 _P = _U64(P)
 _EPS = _U64(EPSILON)
+
+
+def sub(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a - b, on borrow minus EPSILON (canonical for canonical inputs)."""
+    a, b = np.asarray(a, _U64), np.asarray(b, _U64)
+    with np.errstate(over="ignore"):
+        d = a - b
+        return np.where(a < b, d - _EPS, d)
 
 
 def _mul_wide(a: np.ndarray, b: np.ndarray):
@@ -69,6 +78,21 @@ def powers(base: int, n: int) -> np.ndarray:
     return out
 
 
+def inverse(a: np.ndarray) -> np.ndarray:
+    """Elementwise a^(p-2) by square-and-multiply; inverse(0) == 0."""
+    a = np.asarray(a, _U64)
+    result = np.ones_like(a)
+    base = a
+    e = P - 2
+    while e:
+        if e & 1:
+            result = mul(result, base)
+        e >>= 1
+        if e:
+            base = mul(base, base)
+    return result
+
+
 def s_inv(a: int) -> int:
     return pow(a, P - 2, P)
 
@@ -78,3 +102,13 @@ def primitive_root_of_unity(n_log: int) -> int:
     if not 0 <= n_log <= TWO_ADICITY:
         raise ValueError(f"no 2^{n_log}-th root of unity in Goldilocks")
     return pow(POWER_OF_TWO_GENERATOR, 1 << (TWO_ADICITY - n_log), P)
+
+
+def two_adic_subgroup(n_log: int) -> np.ndarray:
+    """[1, g, ..., g^(2^n_log - 1)] for the canonical 2^n_log-th root g."""
+    return powers(primitive_root_of_unity(n_log), 1 << n_log)
+
+
+def coset_shift() -> int:
+    """The LDE coset shift, the multiplicative group generator 7."""
+    return MULTIPLICATIVE_GROUP_GENERATOR

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into a shared
-library with a plain C interface, which is loaded with ``ctypes``.  The build
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc`` process,
+all started together, and the objects are linked into one shared library
+with a plain C interface, which is loaded with ``ctypes``.  The build
 runs at first use, into ``build/`` beside the package (listed in
 ``.gitignore``), under a name keyed by the sources' hash, so a changed source
 is rebuilt and an unchanged one is reused.  Nothing is built on import.
@@ -26,7 +27,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -42,10 +43,20 @@ SIGNATURES = {
                          ("pre", _P), ("post", _P), ("B", _LL),
                          ("log_n1", _I), ("n2", _LL), ("log_t", _I),
                          ("device", _I), ("stream", _P)),
+    "plk_ntt_cols_zero_tail": (("in", _P), ("out", _P), ("twiddles", _P),
+                               ("pre", _P), ("post", _P), ("B", _LL),
+                               ("rate_bits", _I), ("log_n1", _I),
+                               ("n2", _LL), ("log_t", _I), ("device", _I),
+                               ("stream", _P)),
     "plk_ntt_cols_dif": (("in", _P), ("out", _P), ("twiddles", _P),
                          ("pre", _P), ("post", _P), ("B", _LL), ("q", _LL),
                          ("log_n1", _I), ("n2", _LL), ("log_t", _I),
                          ("device", _I), ("stream", _P)),
+    "plk_constraint_program": (("regs", _P), ("out", _P), ("opcodes", _P),
+                               ("slots", _P), ("bank", _P),
+                               ("out_regs", _P), ("n_waves", _I), ("W", _I),
+                               ("n_out", _I), ("C", _LL), ("device", _I),
+                               ("stream", _P)),
 }
 
 
@@ -92,7 +103,8 @@ def _build_key(header: str) -> str:
 
 
 def build() -> dict:
-    """Compile the library if this source tree has not been built yet.
+    """Compile the library if this source tree has not been built yet:
+    one nvcc process per source, run in parallel, then one link.
     Returns {"path", "seconds", "log"} (seconds 0.0 when reused)."""
     header = _poseidon_header()
     out_dir = os.path.join(BUILD_ROOT, _build_key(header))
@@ -102,18 +114,37 @@ def build() -> dict:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "poseidon_constants.h"), "w") as f:
         f.write(header)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", out_dir, "-I", CSRC, "-o", tmp,
-           *_sources()]
+    nvcc = nvcc_path()
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n"
-                           f"{proc.stderr}")
+    jobs = []
+    for src in _sources():
+        obj = os.path.join(out_dir, os.path.basename(src) + f".{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", out_dir, "-I", CSRC, "-c", "-o",
+               obj, src]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for src, _, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(f"== {os.path.basename(src)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(os.path.basename(src))
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+    tmp = f"{lib_path}.{tag}"
+    link = subprocess.run([nvcc, "-shared", "-o", tmp,
+                           *[obj for _, obj, _ in jobs]],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stdout}\n{link.stderr}")
     os.replace(tmp, lib_path)
-    return {"path": lib_path, "seconds": seconds,
-            "log": proc.stdout + proc.stderr}
+    for _, obj, _ in jobs:
+        os.remove(obj)
+    return {"path": lib_path, "seconds": time.perf_counter() - t0,
+            "log": "\n".join(logs)}
 
 
 @functools.lru_cache(maxsize=None)

@@ -4,12 +4,13 @@ The port's counterpart of plonky2_tpu/ops/ntt.py (``ntt``, ``coset_ntt``,
 ``coset_intt``, ``lde_coset_ntt``, ``lde_coset_ntt_bitrev``).  The last axis
 is the polynomial axis (power of two); a 1-D input is one polynomial.  Every
 size runs the four-step schedule (parallel/four_step.py), so on the card
-every transform goes through kernels K3 and K5; the coset shift rides in the
-first pass's fused load factor.  Outputs equal the JAX package's bit for bit.
+every transform goes through kernels K3, K4 and K5; the coset shift rides
+in the first pass's fused load factor.  Outputs equal the JAX package's bit
+for bit.
 
 The zero-tail transform (JAX ``_ntt_core_zero_tail``) is the first pass of
-``lde_coset_ntt_bitrev``: K5 materialises the zero rows in shared memory.
-``lde_coset_ntt`` (natural order) is its bit-reversal.
+both LDEs: K4 (DIT) for the natural-order ``lde_coset_ntt``, K5 (DIF) for
+the Merkle-leaf-order ``lde_coset_ntt_bitrev``.
 """
 from __future__ import annotations
 
@@ -20,7 +21,6 @@ import torch
 from ..field import goldilocks as gl
 from ..field.convert import from_u64
 from ..parallel import four_step
-from ..utils.bits import bit_reverse_indices
 
 SHIFT = gl.MULTIPLICATIVE_GROUP_GENERATOR
 
@@ -77,7 +77,9 @@ def lde_coset_ntt_bitrev(coeffs: torch.Tensor, rate_bits: int,
 @_batched
 def lde_coset_ntt(coeffs: torch.Tensor, rate_bits: int,
                   shift: int = SHIFT) -> torch.Tensor:
-    """Coset LDE in natural order."""
-    out = lde_coset_ntt_bitrev(coeffs, rate_bits, shift)
-    perm = torch.from_numpy(bit_reverse_indices(out.shape[-1]))
-    return out[:, perm.to(out.device)]
+    """Coset LDE of the n coefficients on the n * 2^rate_bits domain, in
+    natural order."""
+    n = coeffs.shape[-1]
+    pre = powers_table(shift, n, str(coeffs.device))
+    return four_step.batched_four_step_zero_tail_ntt(coeffs, rate_bits,
+                                                     pre=pre)

@@ -1,11 +1,13 @@
-"""Wrappers for kernels K3 (DIT column NTT) and K5 (DIF column NTT).
+"""Wrappers for kernels K3 (DIT column NTT), K4 (zero-tail DIT column NTT)
+and K5 (DIF column NTT).
 
-K3 replaces plonky2_tpu/ops/ntt_pallas.py:ntt_cols_pallas and K5 replaces
-ntt_pallas.py:ntt_cols_dif_pallas; their CUDA source is csrc/ntt.cu, whose
-header note gives the bound on an H100 (HBM bytes) and the design.  Both
-transform down axis -2 of a (B, n1, n2) or (n1, n2) int64 batch.
+K3 replaces plonky2_tpu/ops/ntt_pallas.py:ntt_cols_pallas, K4
+ntt_pallas.py:ntt_cols_zero_tail_pallas and K5 ntt_pallas.py:
+ntt_cols_dif_pallas; their CUDA source is csrc/ntt.cu, whose header note
+gives the bound on an H100 (HBM bytes) and the design.  All three transform
+down axis -2 of a (B, n1, n2) or (n1, n2) int64 batch.
 
-Beyond the TPU kernels' contract, both take optional fused pointwise factors:
+Beyond the TPU kernels' contract, all take optional fused pointwise factors:
 ``pre`` multiplies the input (as loaded, natural order) and ``post`` the
 output (as stored), each an int64 table of the input's or output's (rows, n2)
 shape, shared across the batch.  The plain versions apply them with gf.mul.
@@ -41,6 +43,18 @@ def ntt_cols(a: torch.Tensor, inverse: bool = False, pre=None,
     return out.contiguous()
 
 
+def ntt_cols_zero_tail(a: torch.Tensor, rate_bits: int, pre=None,
+                       post=None) -> torch.Tensor:
+    """Plain version of K4: size-n1 DIT NTT down the columns of
+    [a; zero rows], n1 = q * 2^rate_bits for a prefix of q rows, natural
+    order in and out."""
+    if pre is not None:
+        a = gf.mul(a, pre)
+    q = a.shape[-2]
+    zeros = a.new_zeros((*a.shape[:-2], (q << rate_bits) - q, a.shape[-1]))
+    return ntt_cols(torch.cat([a, zeros], dim=-2), post=post)
+
+
 def ntt_cols_dif(a: torch.Tensor, zero_tail_rows: int = 0, pre=None,
                  post=None) -> torch.Tensor:
     """Plain version of K5: size-n1 DIF NTT down the columns of
@@ -71,7 +85,9 @@ def tile_cols(n1: int, n2: int) -> int:
 
 
 def _launch(name: str, x: torch.Tensor, q: int, n1: int, inverse: bool,
-            pre, post) -> torch.Tensor:
+            pre, post, extra=()) -> torch.Tensor:
+    """Launch C entry `name` on x (B, q, n2) -> (B, n1, n2); `extra` are
+    the entry's arguments between B and log_n1."""
     B, _, n2 = x.shape
     log_n1 = log2_strict(n1)
     if n1 > MAX_N1 or B > 65535:
@@ -86,12 +102,9 @@ def _launch(name: str, x: torch.Tensor, q: int, n1: int, inverse: bool,
     tw = _twiddles(n1, inverse, str(dev))
     out = torch.empty((B, n1, n2), dtype=torch.int64, device=dev)
     log_t = log2_strict(tile_cols(n1, n2))
-    args = [x.data_ptr(), out.data_ptr(), tw.data_ptr(), kernels.ptr(pre),
-            kernels.ptr(post), B]
-    if name == "plk_ntt_cols_dif":
-        args.append(q)
-    kernels.call(name, *args, log_n1, n2, log_t, dev.index,
-                 kernels.stream_of(x))
+    kernels.call(name, x.data_ptr(), out.data_ptr(), tw.data_ptr(),
+                 kernels.ptr(pre), kernels.ptr(post), B, *extra, log_n1, n2,
+                 log_t, dev.index, kernels.stream_of(x))
     return out
 
 
@@ -114,6 +127,29 @@ def ntt_cols_cuda(a: torch.Tensor, inverse: bool = False, pre=None,
 ntt_cols_cuda.launches = 0
 
 
+def ntt_cols_zero_tail_cuda(a: torch.Tensor, rate_bits: int, pre=None,
+                            post=None) -> torch.Tensor:
+    """K4: (B, q, n2) or (q, n2) prefix -> (B, q * 2^rate_bits, n2), DIT
+    down the columns of [prefix; zero rows], natural order in and out."""
+    kernels.check_field_tensor(a, "a")
+    if a.dim() not in (2, 3):
+        raise ValueError(f"a: expected (B, q, n2) or (q, n2), got "
+                         f"{tuple(a.shape)}")
+    if rate_bits < 0:
+        raise ValueError(f"rate_bits = {rate_bits}")
+    if kernels.on_cpu(a):
+        return ntt_cols_zero_tail(a, rate_bits, pre, post)
+    x = a[None] if a.dim() == 2 else a
+    q = x.shape[1]
+    out = _launch("plk_ntt_cols_zero_tail", x, q, q << rate_bits, False, pre,
+                  post, (rate_bits,))
+    ntt_cols_zero_tail_cuda.launches += 1
+    return out[0] if a.dim() == 2 else out
+
+
+ntt_cols_zero_tail_cuda.launches = 0
+
+
 def ntt_cols_dif_cuda(a: torch.Tensor, zero_tail_rows: int = 0, pre=None,
                       post=None) -> torch.Tensor:
     """K5: (B, q, n2) or (q, n2) -> (B, q + zero_tail_rows, n2), DIF down
@@ -127,7 +163,7 @@ def ntt_cols_dif_cuda(a: torch.Tensor, zero_tail_rows: int = 0, pre=None,
     x = a[None] if a.dim() == 2 else a
     q = x.shape[1]
     out = _launch("plk_ntt_cols_dif", x, q, q + zero_tail_rows, False, pre,
-                  post)
+                  post, (q,))
     ntt_cols_dif_cuda.launches += 1
     return out[0] if a.dim() == 2 else out
 

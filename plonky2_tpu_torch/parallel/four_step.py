@@ -2,9 +2,10 @@
 
 The port's counterpart of the single-device schedules in
 plonky2_tpu/parallel/sharded_ntt.py: ``batched_four_step_ntt`` (with
-``_four_step_pallas``) and ``batched_four_step_zero_tail_bitrev`` (with
-``_four_step_zero_tail_bitrev_pallas``), and the step-2 twiddle tables with
-their ``row_perm`` variant.  An n = n1 * n2 NTT is: column NTTs of size n1,
+``_four_step_pallas``), ``batched_four_step_zero_tail_ntt`` (with
+``_four_step_zero_tail_pallas``) and ``batched_four_step_zero_tail_bitrev``
+(with ``_four_step_zero_tail_bitrev_pallas``), and the step-2 twiddle tables
+with their ``row_perm`` variant.  An n = n1 * n2 NTT is: column NTTs of size n1,
 times W[k1, i2] = w_n^(k1 * i2), transpose, column NTTs of size n2.
 
 The Goldilocks products the JAX package left to XLA between its kernels run
@@ -64,6 +65,25 @@ def batched_four_step_ntt(coeffs: torch.Tensor, inverse: bool = False,
         a.transpose(1, 2).contiguous(), inverse,
         post=None if post is None else post.reshape(n2, n1))
     return b.reshape(B, n)
+
+
+def batched_four_step_zero_tail_ntt(prefix: torch.Tensor, rate_bits: int,
+                                    pre=None) -> torch.Tensor:
+    """(B, q) -> (B, q * 2^rate_bits): the NTT of [prefix, zeros] in
+    natural order.  Step 1 is the zero-tail DIT column NTT (K4) on the
+    (n1 / 2^r, n2) prefix rows, with ``pre`` (q,) in its load and the
+    step-2 twiddles in its store; step 3 is K3 on the transpose, whose
+    b[k2, k1] is output k2 * n1 + k1."""
+    B, q = prefix.shape
+    m = q << rate_bits
+    n1, n2 = _split(m, 1 << rate_bits)
+    q_rows = n1 >> rate_bits
+    tw = step2_twiddles(n1, n2, False, False, 1, str(prefix.device))
+    a = ntt_cuda.ntt_cols_zero_tail_cuda(
+        prefix.reshape(B, q_rows, n2), rate_bits,
+        pre=None if pre is None else pre.reshape(q_rows, n2), post=tw)
+    b = ntt_cuda.ntt_cols_cuda(a.transpose(1, 2).contiguous())
+    return b.reshape(B, m)
 
 
 def batched_four_step_zero_tail_bitrev(prefix: torch.Tensor, rate_bits: int,

@@ -1,0 +1,307 @@
+"""Compiled constraint programs: data, host scalar bank, plain interpreter.
+
+The port's counterpart of the execution half of
+plonky2_tpu/plonk/constraint_program.py: the ``ConstraintProgram`` register
+machine (:305), its host ``scalar_bank`` (:323) and the interpreter that
+``run_numpy`` (:348) and the Pallas kernel (:459) implement.  The compiler
+(tracing, CSE, wave scheduling, register allocation) stays in the JAX
+package: a compiled program is plain arrays, carried across by
+``program_from_arrays`` and shipped as an ``.npz`` (``save``/``load``).
+
+Registers [0, n_inputs) are preloaded with the vector inputs.  Waves run in
+order; every slot of a wave reads its operands before any slot writes (the
+allocator reuses a register that dies in a wave for that wave's results),
+and padded slots all write the dump register n_regs - 1, where the last
+write wins.  Operand ``b`` is a bank slot for the scalar opcodes (ADDS,
+SUBS, MULS, MULADDS) and a register otherwise.
+
+``run_plain`` is the plain PyTorch version of kernel K6
+(plonk/constraint_program_cuda.py).
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..field import gf
+from ..field import goldilocks as gl
+
+# vector-op ISA (the JAX package's opcode numbers)
+ADD = 0       # r[d] = r[a] + r[b]
+SUB = 1       # r[d] = r[a] - r[b]
+MUL = 2       # r[d] = r[a] * r[b]
+ADDS = 3      # r[d] = r[a] + s[b]
+SUBS = 4      # r[d] = s[b] - r[a]
+MULS = 5      # r[d] = r[a] * s[b]
+MULADD = 6    # r[d] = r[a] * r[b] + r[c]
+MULADDS = 7   # r[d] = r[a] * s[b] + r[c]
+
+N_OPCODES = 8
+OP_NAMES = ["add", "sub", "mul", "adds", "subs", "muls", "muladd", "muladds"]
+SCALAR_B = (ADDS, SUBS, MULS, MULADDS)
+MUL_OPS = (MUL, MULS, MULADD, MULADDS)
+
+# scalar tape node kinds: ('k', value), ('in', slot), (op, a_sid, b_sid)
+TAPE_KINDS = ["k", "in", "add", "sub", "mul"]
+
+_PROGRAM_ARRAYS = ("wave_opcodes", "wave_dst", "wave_a", "wave_b", "wave_c",
+                   "out_regs", "tape_kind", "tape_a", "tape_b", "tape_const",
+                   "bank_sids")
+_PROGRAM_INTS = ("n_inputs", "n_regs", "wave_width", "n_scalar_inputs",
+                 "n_ops")
+
+
+@dataclass(eq=False)
+class ConstraintProgram:
+    n_inputs: int                 # vector inputs occupy regs [0, n_inputs)
+    n_regs: int                   # register file height (incl. dump reg)
+    wave_width: int
+    wave_opcodes: np.ndarray      # (n_waves,) int32
+    wave_dst: np.ndarray          # (n_waves, W) int32
+    wave_a: np.ndarray            # (n_waves, W) int32
+    wave_b: np.ndarray            # (n_waves, W) int32 (reg or bank slot)
+    wave_c: np.ndarray            # (n_waves, W) int32
+    out_regs: np.ndarray          # (n_outputs,) int32
+    tape_kind: np.ndarray         # (n_nodes,) int8, index into TAPE_KINDS
+    tape_a: np.ndarray            # (n_nodes,) int32: input slot or node id
+    tape_b: np.ndarray            # (n_nodes,) int32: node id
+    tape_const: np.ndarray        # (n_nodes,) uint64: value of a 'k' node
+    bank_sids: np.ndarray         # (bank_size,) int32: slot -> node id
+    n_scalar_inputs: int
+    n_ops: int
+
+    @property
+    def n_waves(self) -> int:
+        return int(self.wave_opcodes.shape[0])
+
+    @property
+    def n_outputs(self) -> int:
+        return int(self.out_regs.shape[0])
+
+    @property
+    def dump_reg(self) -> int:
+        return self.n_regs - 1
+
+    def real_op_counts(self) -> dict:
+        """opcode name -> number of real (not padded) slots."""
+        real = self.wave_dst != self.dump_reg
+        return {OP_NAMES[c]: int(real[self.wave_opcodes == c].sum())
+                for c in range(N_OPCODES)}
+
+    def n_mul_ops(self) -> int:
+        """Real slots that do one 64x64 field product."""
+        counts = self.real_op_counts()
+        return sum(counts[OP_NAMES[c]] for c in MUL_OPS)
+
+    def arrays(self) -> dict:
+        out = {k: getattr(self, k) for k in _PROGRAM_ARRAYS}
+        out.update({k: np.int64(getattr(self, k)) for k in _PROGRAM_INTS})
+        return out
+
+    # -- host scalar bank --------------------------------------------------
+
+    def scalar_bank(self, scalar_inputs: List[int]) -> np.ndarray:
+        """Evaluate the scalar tape in exact integers; (bank_size,) uint64
+        (one zero slot when the program reads no scalar)."""
+        if len(scalar_inputs) != self.n_scalar_inputs:
+            raise ValueError(f"{len(scalar_inputs)} scalar inputs, expected "
+                             f"{self.n_scalar_inputs}")
+        P = gl.P
+        vals: List[int] = []
+        for kind, a, b, k in zip(self.tape_kind.tolist(), self.tape_a.tolist(),
+                                 self.tape_b.tolist(),
+                                 self.tape_const.tolist()):
+            op = TAPE_KINDS[kind]
+            if op == "k":
+                vals.append(k)
+            elif op == "in":
+                vals.append(int(scalar_inputs[a]) % P)
+            elif op == "add":
+                vals.append((vals[a] + vals[b]) % P)
+            elif op == "sub":
+                vals.append((vals[a] - vals[b]) % P)
+            else:
+                vals.append((vals[a] * vals[b]) % P)
+        bank = [vals[sid] for sid in self.bank_sids.tolist()] or [0]
+        return np.array(bank, dtype=np.uint64)
+
+    # -- plain interpreter (the plain version of kernel K6) ----------------
+
+    def run_plain(self, inputs: torch.Tensor,
+                  bank: torch.Tensor) -> torch.Tensor:
+        """inputs (n_inputs, C) and bank (bank_size,) int64 tensors ->
+        (n_outputs, C), with gf's add/sub/mul."""
+        if inputs.shape[0] != self.n_inputs:
+            raise ValueError(f"inputs: {inputs.shape[0]} rows, expected "
+                             f"{self.n_inputs}")
+        dev = inputs.device
+        C = inputs.shape[-1]
+        regs = inputs.new_zeros((self.n_regs, C))
+        regs[:self.n_inputs] = inputs
+        bank = bank.to(dev)
+        for code, a, b, c, d, dump in _plain_waves(self, str(dev)):
+            ra = regs[a]
+            rb = bank[b][:, None] if code in SCALAR_B else regs[b]
+            if code in (ADD, ADDS):
+                out = gf.add(ra, rb)
+            elif code == SUB:
+                out = gf.sub(ra, rb)
+            elif code == SUBS:
+                out = gf.sub(rb, ra)
+            elif code in (MUL, MULS):
+                out = gf.mul(ra, rb)
+            else:                                  # MULADD, MULADDS
+                out = gf.add(gf.mul(ra, rb), regs[c])
+            # real slots write distinct registers; of the padded slots,
+            # which all write the dump register, the last one wins
+            regs[d] = out[:d.shape[0]]
+            if dump is not None:
+                regs[self.dump_reg] = out[dump]
+        return regs[torch.from_numpy(self.out_regs.astype(np.int64)).to(dev)]
+
+
+@functools.lru_cache(maxsize=8)
+def _plain_waves(prog: ConstraintProgram, device: str):
+    """Per wave: (opcode, a, b, c, real dst, index of the last padded
+    slot or None), index tensors on `device`.  Real slots come first."""
+    dump = prog.dump_reg
+    out = []
+    for w in range(prog.n_waves):
+        dst = prog.wave_dst[w]
+        real = np.flatnonzero(dst != dump)
+        pads = np.flatnonzero(dst == dump)
+        if pads.size and real.size and real.max() > pads.min():
+            raise ValueError(f"wave {w}: padded slot before a real one")
+        t = [torch.from_numpy(x.astype(np.int64)).to(device)
+             for x in (prog.wave_a[w], prog.wave_b[w], prog.wave_c[w],
+                       dst[real])]
+        out.append((int(prog.wave_opcodes[w]), *t,
+                    int(pads[-1]) if pads.size else None))
+    return tuple(out)
+
+
+# -- carrying a program across, and storing it ------------------------------
+
+def program_from_arrays(obj) -> ConstraintProgram:
+    """A port program from any object with the JAX ``ConstraintProgram``'s
+    attributes (read by name; nothing of the JAX package is imported)."""
+    kinds, ta, tb, tk = [], [], [], []
+    for rec in obj.snodes:
+        op = rec[0]
+        kinds.append(TAPE_KINDS.index(op))
+        if op == "k":
+            ta.append(0)
+            tb.append(0)
+            tk.append(int(rec[1]) % gl.P)
+        elif op == "in":
+            ta.append(int(rec[1]))
+            tb.append(0)
+            tk.append(0)
+        else:
+            ta.append(int(rec[1]))
+            tb.append(int(rec[2]))
+            tk.append(0)
+    i32 = lambda x: np.asarray(x, dtype=np.int32)  # noqa: E731
+    return ConstraintProgram(
+        n_inputs=int(obj.n_inputs), n_regs=int(obj.n_regs),
+        wave_width=int(obj.wave_width),
+        wave_opcodes=i32(obj.wave_opcodes), wave_dst=i32(obj.wave_dst),
+        wave_a=i32(obj.wave_a), wave_b=i32(obj.wave_b),
+        wave_c=i32(obj.wave_c), out_regs=i32(obj.out_regs),
+        tape_kind=np.asarray(kinds, dtype=np.int8), tape_a=i32(ta),
+        tape_b=i32(tb), tape_const=np.asarray(tk, dtype=np.uint64),
+        bank_sids=i32(obj.bank_sids),
+        n_scalar_inputs=int(obj.n_scalar_inputs), n_ops=int(obj.n_ops))
+
+
+def program_from_npz(arrays) -> ConstraintProgram:
+    kw = {k: np.asarray(arrays[k]) for k in _PROGRAM_ARRAYS}
+    kw.update({k: int(arrays[k]) for k in _PROGRAM_INTS})
+    return ConstraintProgram(**kw)
+
+
+def save(path: str, program: ConstraintProgram, shape=None) -> None:
+    """One compressed ``.npz`` holding the program and, when given, the
+    circuit shape (plonk/circuit_shape.py) under ``shape_`` keys."""
+    arrays = program.arrays()
+    if shape is not None:
+        arrays.update({f"shape_{k}": v for k, v in shape.arrays().items()})
+    np.savez_compressed(path, **arrays)
+
+
+def load(path: str):
+    """(program, shape or None) from a file written by ``save``."""
+    from .circuit_shape import CircuitShape
+    with np.load(path, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    shape_keys = {k[len("shape_"):]: v for k, v in arrays.items()
+                  if k.startswith("shape_")}
+    shape: Optional[CircuitShape] = (CircuitShape.from_arrays(shape_keys)
+                                     if shape_keys else None)
+    return program_from_npz(arrays), shape
+
+
+def random_program(rng: np.random.Generator, n_inputs: int = 6,
+                   n_waves: int = 40, wave_width: int = 8,
+                   n_regs: int = 24) -> ConstraintProgram:
+    """A random valid program for checking an interpreter: every opcode,
+    operands read only registers already written, and destinations are
+    drawn first from the registers that later slots of the same wave
+    still read, so registers are reused inside waves.  Two scalar inputs;
+    the bank holds them, a constant and their product."""
+    W, dump = wave_width, n_regs - 1
+    defined = list(range(n_inputs))
+    shape = (n_waves, W)
+    dst, a, b, c = (np.zeros(shape, np.int32) for _ in range(4))
+    codes = rng.integers(0, N_OPCODES, n_waves).astype(np.int32)
+    for w in range(n_waves):
+        k_real = int(rng.integers(1, W + 1))
+        pick = lambda: int(rng.choice(defined))  # noqa: E731
+        for k in range(k_real):
+            a[w, k], c[w, k] = pick(), pick()
+            b[w, k] = (int(rng.integers(0, 4)) if codes[w] in SCALAR_B
+                       else pick())
+        read_later = set()
+        for k in range(k_real - 1, -1, -1):
+            free = [r for r in range(dump) if r not in dst[w, :k_real]]
+            reuse = [r for r in free if r in read_later]
+            dst[w, k] = int(rng.choice(reuse if reuse and rng.random() < 0.7
+                                       else free))
+            read_later |= {int(a[w, k]), int(c[w, k])}
+            if codes[w] not in SCALAR_B:
+                read_later.add(int(b[w, k]))
+        dst[w, k_real:] = dump
+        defined = sorted(set(defined) | set(dst[w, :k_real].tolist()))
+    out = rng.choice(defined, size=min(4, len(defined)), replace=False)
+    k = int(rng.integers(2, gl.P, dtype=np.uint64))
+    return ConstraintProgram(
+        n_inputs=n_inputs, n_regs=n_regs, wave_width=W, wave_opcodes=codes,
+        wave_dst=dst, wave_a=a, wave_b=b, wave_c=c,
+        out_regs=out.astype(np.int32),
+        tape_kind=np.array([1, 1, 0, 4], np.int8),
+        tape_a=np.array([0, 1, 0, 0], np.int32),
+        tape_b=np.array([0, 0, 0, 1], np.int32),
+        tape_const=np.array([0, 0, k, 0], np.uint64),
+        bank_sids=np.arange(4, dtype=np.int32), n_scalar_inputs=2,
+        n_ops=int((dst != dump).sum()))
+
+
+def in_wave_reuse(prog: ConstraintProgram) -> bool:
+    """Whether some slot writes a register that a later slot of its wave
+    reads."""
+    for w in range(prog.n_waves):
+        code = int(prog.wave_opcodes[w])
+        for k in range(prog.wave_width):
+            d = prog.wave_dst[w, k]
+            later = [prog.wave_a[w, k + 1:]]
+            if code not in SCALAR_B:
+                later.append(prog.wave_b[w, k + 1:])
+            if code in (MULADD, MULADDS):
+                later.append(prog.wave_c[w, k + 1:])
+            if d != prog.dump_reg and np.isin(d, np.concatenate(later)):
+                return True
+    return False

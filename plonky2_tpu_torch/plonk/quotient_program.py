@@ -1,0 +1,156 @@
+"""The quotient polynomials, evaluated by the compiled constraint program.
+
+The port's counterpart of plonky2_tpu/plonk/quotient_program.py
+(``quotient_scalar_inputs``, ``DeviceQuotient``).  The program's vector
+inputs are, in order (JAX :11-14):
+
+    [constants | sigmas] (cs oracle), wires, [zs | partial products]
+    (Z/PP oracle), next zs (Z/PP oracle, rows shifted by one subgroup
+    step), x, L_0(x), 1/Z_H(x)
+
+on the 2^(degree_bits + quotient_degree_bits) quotient coset, in natural
+order.  Its scalar inputs are the public-inputs hash (4), the betas, the
+gammas and the alphas.  Its outputs are the num_challenges quotient rows.
+
+The commitments' leaves are in bit-reversed order, so each chunk of lanes
+gathers its columns through ``idx_nat``/``idx_next`` straight into the
+first rows of the register file of kernel K6, which then runs the program
+in place; the values go through ``coset_intt`` (K3) to coefficients.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..field import gf
+from ..field import goldilocks as gl
+from ..field.convert import from_u64
+from ..ops import ntt
+from ..utils.bits import bit_reverse_indices
+from .constraint_program_cuda import run_program_cuda
+
+
+def quotient_scalar_inputs(public_inputs_hash, betas, gammas,
+                           alphas) -> List[int]:
+    return ([int(x) for x in public_inputs_hash] + [int(x) for x in betas]
+            + [int(x) for x in gammas] + [int(x) for x in alphas])
+
+
+def domain_columns(shape, device) -> torch.Tensor:
+    """(3, N) natural-order columns x, L_0(x), 1/Z_H(x) on the quotient
+    coset x = shift * w^i, N = 2^(degree_bits + quotient_degree_bits)."""
+    qdb = shape.quotient_degree_bits
+    N = 1 << (shape.degree_bits + qdb)
+    shift = gl.coset_shift()
+    xs = gf.mul(from_u64(gl.two_adic_subgroup(shape.degree_bits + qdb),
+                         device), gf.as_i64(shift))
+    # Z_H(x) = x^n - 1 takes the 2^qdb values shift^n * v^i - 1, in turn
+    g_pow_n = pow(shift, shape.degree, gl.P)
+    v = gl.two_adic_subgroup(qdb)
+    zh = gl.sub(gl.mul(v, np.uint64(g_pow_n)), np.uint64(1))
+    reps = N // zh.shape[0]
+    zh_tiled = from_u64(np.tile(zh, reps), device)
+    zh_inv = from_u64(np.tile(gl.inverse(zh), reps), device)
+    n_x_minus_1 = gf.mul(gf.sub(xs, 1), gf.as_i64(shape.degree))
+    l_0 = gf.mul(zh_tiled, gf.inverse(n_x_minus_1))
+    return torch.stack([xs, l_0, zh_inv])
+
+
+class DeviceQuotient:
+    """Per-circuit quotient context: the program, the resident cs leaves,
+    the gather indices and the domain columns, made once and reused by
+    every proof.  Runs on `device` (default cuda)."""
+
+    def __init__(self, shape, program, cs_batch, chunk: int | None = None,
+                 device=None):
+        self.device = resolve_device(device)
+        self.shape = shape
+        self.program = program
+        nch = shape.num_challenges
+        self.n_cols = (shape.num_preprocessed_polys, shape.num_wires,
+                       shape.num_zs_pp, nch)
+        if program.n_inputs != sum(self.n_cols) + 3:
+            raise ValueError(f"program has {program.n_inputs} inputs, the "
+                             f"shape gives {sum(self.n_cols) + 3}")
+        if program.n_outputs != nch:
+            raise ValueError(f"program has {program.n_outputs} outputs, "
+                             f"expected {nch}")
+        qdb = shape.quotient_degree_bits
+        if qdb > shape.rate_bits:
+            raise ValueError("quotient degree exceeds the LDE rate")
+        N = 1 << (shape.degree_bits + qdb)
+        self.lde_size = N
+        self.chunk = N if chunk is None else chunk
+        if N % self.chunk:
+            raise ValueError(f"chunk {self.chunk} does not divide {N}")
+
+        # natural-order lane i reads LDE row i * step, stored at leaf
+        # column bitrev(i * step); Z(g x) is one subgroup step further
+        full = 1 << (shape.degree_bits + shape.rate_bits)
+        step = 1 << (shape.rate_bits - qdb)
+        perm = bit_reverse_indices(full)
+        rows = np.arange(N, dtype=np.int64) * step
+        next_rows = (N >> shape.degree_bits) * step
+        self.idx_nat = torch.from_numpy(perm[rows]).to(self.device)
+        self.idx_next = torch.from_numpy(
+            perm[(rows + next_rows) % full]).to(self.device)
+        self.cs_leaves = cs_batch.leaves_dev.to(self.device)
+        self.dom = domain_columns(shape, self.device)
+
+    def gather(self, lanes, wires_batch, zspp_batch,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+        """The program's (n_inputs, len(lanes)) inputs at natural-order
+        `lanes` (a slice or an index tensor), written into `out` if given
+        (e.g. the first rows of a register file)."""
+        inat, inext = self.idx_nat[lanes], self.idx_next[lanes]
+        C = inat.shape[0]
+        if out is None:
+            out = torch.empty((self.program.n_inputs, C), dtype=torch.int64,
+                              device=self.device)
+        n_pre, n_wires, n_zspp, nch = self.n_cols
+        z_leaves = zspp_batch.leaves_dev
+        row = 0
+        for src, n, idx in ((self.cs_leaves, n_pre, inat),
+                            (wires_batch.leaves_dev, n_wires, inat),
+                            (z_leaves, n_zspp, inat),
+                            (z_leaves, nch, inext)):
+            torch.index_select(src[:n], 1, idx, out=out[row:row + n])
+            row += n
+        out[row:row + 3] = self.dom[:, lanes]
+        return out
+
+    def scalar_bank(self, public_inputs_hash, betas, gammas,
+                    alphas) -> torch.Tensor:
+        return from_u64(self.program.scalar_bank(quotient_scalar_inputs(
+            public_inputs_hash, betas, gammas, alphas)), self.device)
+
+    def evaluate(self, wires_batch, zspp_batch, public_inputs_hash, betas,
+                 gammas, alphas, chunk: int | None = None) -> torch.Tensor:
+        """(num_challenges, N) quotient values on the coset, natural
+        order: gather -> K6, chunk by chunk (of ``chunk`` lanes when
+        given, else the context's)."""
+        prog = self.program
+        bank = self.scalar_bank(public_inputs_hash, betas, gammas, alphas)
+        C = self.chunk if chunk is None else chunk
+        if self.lde_size % C:
+            raise ValueError(f"chunk {C} does not divide {self.lde_size}")
+        vals = torch.empty((prog.n_outputs, self.lde_size), dtype=torch.int64,
+                           device=self.device)
+        regs = torch.empty((prog.n_regs, C), dtype=torch.int64,
+                           device=self.device)
+        for c in range(self.lde_size // C):
+            lanes = slice(c * C, (c + 1) * C)
+            self.gather(lanes, wires_batch, zspp_batch,
+                        out=regs[:prog.n_inputs])
+            vals[:, lanes] = run_program_cuda(prog, regs, bank)
+        return vals
+
+    def compute(self, wires_batch, zspp_batch, public_inputs_hash, betas,
+                gammas, alphas) -> torch.Tensor:
+        """Quotient coefficient rows (num_challenges, N)."""
+        return ntt.coset_intt(self.evaluate(wires_batch, zspp_batch,
+                                            public_inputs_hash, betas,
+                                            gammas, alphas))

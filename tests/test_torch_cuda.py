@@ -6,6 +6,8 @@ imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 (``--noconftest`` skips tests/conftest.py, which imports jax.)"""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -15,7 +17,10 @@ from plonky2_tpu_torch.field.goldilocks import P
 from plonky2_tpu_torch.fri.oracle import PolynomialBatch
 from plonky2_tpu_torch.hash import poseidon as pos
 from plonky2_tpu_torch.hash import poseidon_cuda as pc
+from plonky2_tpu_torch.ops import ntt as tntt
 from plonky2_tpu_torch.ops import ntt_cuda as nc
+from plonky2_tpu_torch.plonk import constraint_program as cp
+from plonky2_tpu_torch.plonk import constraint_program_cuda as cpc
 
 pytestmark = pytest.mark.cuda
 
@@ -68,6 +73,92 @@ def test_ntt_cols_dif_kernel(dev, q, tail):
            nc.ntt_cols_dif(a, tail, pre=pre, post=post))
 
 
+BOUNDARY = np.array([0, 1, (1 << 32) - 1, 1 << 32, P - 1], dtype=np.uint64)
+FLAGSHIP_NPZ = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "plonky2_tpu_torch", "plonk", "programs",
+    "hash_tree_wide_ecc.npz")
+
+
+@pytest.mark.parametrize("q,r,n2", [(16, 3, 128), (1, 3, 64), (128, 3, 256),
+                                    (64, 0, 64), (512, 1, 16)])
+def test_ntt_cols_zero_tail_kernel(dev, q, r, n2):
+    a = _rand((2, q, n2), q + r, dev)
+    a[0] = from_u64(BOUNDARY[np.random.default_rng(q).integers(
+        0, 5, size=(q, n2))], dev)
+    pre, post = _rand((q, n2), 3, dev), _rand((q << r, n2), 4, dev)
+    before = nc.ntt_cols_zero_tail_cuda.launches
+    _equal(nc.ntt_cols_zero_tail_cuda(a, r), nc.ntt_cols_zero_tail(a, r))
+    _equal(nc.ntt_cols_zero_tail_cuda(a, r, pre=pre, post=post),
+           nc.ntt_cols_zero_tail(a, r, pre=pre, post=post))
+    assert nc.ntt_cols_zero_tail_cuda.launches == before + 2
+
+
+def test_natural_lde_is_bitrev_lde_reordered(dev):
+    """K4's natural-order LDE against K5's leaf-order LDE."""
+    from plonky2_tpu_torch.utils.bits import bit_reverse_indices
+    c = _rand((3, 1 << 12), 9, dev)
+    nat = tntt.lde_coset_ntt(c, 3)
+    perm = torch.from_numpy(bit_reverse_indices(1 << 15)).to(dev)
+    _equal(nat, tntt.lde_coset_ntt_bitrev(c, 3)[:, perm])
+
+
+@pytest.mark.parametrize("seed,W", [(0, 8), (1, 16), (2, 32)])
+def test_constraint_program_kernel_random(dev, seed, W):
+    rng = np.random.default_rng(seed)
+    prog = cp.random_program(rng, wave_width=W, n_regs=3 * W)
+    assert cp.in_wave_reuse(prog)
+    inputs = _rand((prog.n_inputs, 1000), seed, dev)
+    inputs[:, :100] = from_u64(BOUNDARY[rng.integers(
+        0, 5, size=(prog.n_inputs, 100))], dev)
+    bank = from_u64(prog.scalar_bank([5, P - 2]), dev)
+    before = cpc.run_program_cuda.launches
+    _equal(cpc.run_program_cuda(prog, inputs, bank),
+           prog.run_plain(inputs, bank))
+    assert cpc.run_program_cuda.launches == before + 1
+
+
+def test_constraint_program_kernel_flagship(dev):
+    prog, _ = cp.load(FLAGSHIP_NPZ)
+    rng = np.random.default_rng(11)
+    inputs = _rand((prog.n_inputs, 4096), 11, dev)
+    bank = from_u64(prog.scalar_bank(
+        [int(x) for x in rng.integers(0, P, size=prog.n_scalar_inputs,
+                                      dtype=np.uint64)]), dev)
+    want = prog.run_plain(inputs, bank)
+    _equal(cpc.run_program_cuda(prog, inputs, bank), want)
+    regs = torch.empty((prog.n_regs, 4096), dtype=torch.int64, device=dev)
+    regs[:prog.n_inputs] = inputs
+    _equal(cpc.run_program_cuda(prog, regs, bank), want)
+
+
+def test_quotient_round_on_card_matches_cpu(dev):
+    """The whole round at the flagship widths and a small degree."""
+    import dataclasses
+
+    from plonky2_tpu_torch.plonk.prover import quotient_round
+    prog, shape = cp.load(FLAGSHIP_NPZ)
+    shape = dataclasses.replace(shape, degree_bits=6, cap_height=2)
+    n = shape.degree
+    wires = _rand((shape.num_wires, n), 1, "cpu")
+    sigmas = _rand((shape.num_routed_wires, n), 2, "cpu")
+    cs_values = _rand((shape.num_preprocessed_polys, n), 3, "cpu")
+    ch = [[int(x) for x in np.random.default_rng(4 + i).integers(
+        0, P, size=k, dtype=np.uint64)] for i, k in enumerate((4, 2, 2, 2))]
+    outs = []
+    for d in (dev, "cpu"):
+        cs = PolynomialBatch.from_values(cs_values, shape.rate_bits, False,
+                                         shape.cap_height, device=d)
+        wb = PolynomialBatch.from_values(wires, shape.rate_bits, False,
+                                         shape.cap_height, device=d)
+        outs.append(quotient_round(wires, wb, sigmas, shape, prog, cs, *ch,
+                                   chunk=128, device=d))
+    card, cpu = outs
+    _equal(card.zspp_values, cpu.zspp_values)
+    _equal(card.quotient_coeffs, cpu.quotient_coeffs)
+    np.testing.assert_array_equal(card.quotient_batch.merkle_tree.cap.digests,
+                                  cpu.quotient_batch.merkle_tree.cap.digests)
+
+
 def test_kernels_reject_bad_operands(dev):
     a = _rand((2, 16, 32), 5, dev)
     with pytest.raises(ValueError):
@@ -76,6 +167,13 @@ def test_kernels_reject_bad_operands(dev):
         nc.ntt_cols_cuda(a, post=_rand((16, 16), 6, dev))   # wrong shape
     with pytest.raises(TypeError):
         pc.hash_leaves_cols_cuda(a[0].to(torch.int32))
+    prog = cp.random_program(np.random.default_rng(0))
+    with pytest.raises(ValueError):        # neither n_inputs nor n_regs rows
+        cpc.run_program_cuda(prog, _rand((prog.n_inputs + 1, 64), 7, dev),
+                             _rand((4,), 8, dev))
+    with pytest.raises(ValueError):        # bank on another device
+        cpc.run_program_cuda(prog, _rand((prog.n_inputs, 64), 7, dev),
+                             _rand((4,), 8, "cpu"))
 
 
 def test_commit_on_card_matches_cpu(dev):

@@ -1,7 +1,7 @@
-"""The plain versions of kernels K3 and K5 against the Pallas kernels run in
-interpret mode, and the port's NTT functions (ops/ntt.py over the four-step
-schedule) against plonky2_tpu/ops/ntt.py on both sides of its 2^12 switch.
-Exact equality."""
+"""The plain versions of kernels K3, K4 and K5 against the Pallas kernels run
+in interpret mode, and the port's NTT functions (ops/ntt.py over the
+four-step schedules) against plonky2_tpu/ops/ntt.py on both sides of its
+2^12 switch and plonky2_tpu/parallel/sharded_ntt.py.  Exact equality."""
 import numpy as np
 import pytest
 import torch
@@ -67,6 +67,38 @@ def test_ntt_cols_dif_matches_pallas_interpret(q, tail):
     np.testing.assert_array_equal(_u(nc.ntt_cols_dif_cuda(_t(v), tail)), want)
 
 
+@pytest.mark.parametrize("q,r,batch", [(16, 3, 2), (2, 3, 1), (1, 3, 2),
+                                        (8, 1, 0), (16, 0, 2)])
+def test_ntt_cols_zero_tail_matches_pallas_interpret(q, r, batch):
+    shape = (batch, q, 128) if batch else (q, 128)
+    v = _rand(shape, 20 + q + r)
+    if batch:       # boundary values in one batch entry
+        bnd = np.array([0, 1, (1 << 32) - 1, 1 << 32, P - 1], np.uint64)
+        v[0] = bnd[np.random.default_rng(q).integers(0, 5, size=(q, 128))]
+    want = _from_jax(ntp.ntt_cols_zero_tail_pallas(_jax_pair(v), r, tile=128,
+                                                   interpret=True))
+    got = nc.ntt_cols_zero_tail(_t(v), r)
+    assert tuple(got.shape) == shape[:-2] + (q << r, 128)
+    np.testing.assert_array_equal(_u(got), want)
+    np.testing.assert_array_equal(_u(nc.ntt_cols_zero_tail_cuda(_t(v), r)),
+                                  want)
+
+
+@pytest.mark.parametrize("q,r", [(1 << 9, 3), (1 << 11, 1), (1 << 10, 3)])
+def test_four_step_zero_tail_matches_sharded_ntt(q, r):
+    """m = q * 2^r >= 2^12: the natural-order zero-tail four-step (K4 then
+    K3) against the JAX package's schedule, coset shift included."""
+    from plonky2_tpu.parallel import sharded_ntt as fs
+    v = _rand((2, q), 30 + r)
+    want = _from_jax(jax.jit(fs.batched_four_step_zero_tail_ntt,
+                             static_argnums=1)(_jax_pair(v), r))
+    np.testing.assert_array_equal(
+        _u(four_step.batched_four_step_zero_tail_ntt(_t(v), r)), want)
+    want_lde = _from_jax(jax.jit(jntt.lde_coset_ntt, static_argnums=1)(
+        _jax_pair(v), r))
+    np.testing.assert_array_equal(_u(tntt.lde_coset_ntt(_t(v), r)), want_lde)
+
+
 def test_fused_factors_are_pointwise_products():
     v, pre, post = _rand((2, 8, 16), 3), _rand((8, 16), 4), _rand((8, 16), 5)
     got = nc.ntt_cols(_t(v), True, pre=_t(pre), post=_t(post))
@@ -75,6 +107,11 @@ def test_fused_factors_are_pointwise_products():
     q_pre = _rand((2, 16), 6)
     got = nc.ntt_cols_dif(_t(v[:, :2]), 6, pre=_t(q_pre), post=_t(post))
     want = gf.mul(nc.ntt_cols_dif(gf.mul(_t(v[:, :2]), _t(q_pre)), 6),
+                  _t(post))
+    np.testing.assert_array_equal(_u(got), _u(want))
+    got = nc.ntt_cols_zero_tail(_t(v[:, :2]), 2, pre=_t(q_pre),
+                                post=_t(post))
+    want = gf.mul(nc.ntt_cols_zero_tail(gf.mul(_t(v[:, :2]), _t(q_pre)), 2),
                   _t(post))
     np.testing.assert_array_equal(_u(got), _u(want))
 
@@ -148,3 +185,7 @@ def test_ntt_wrappers_reject_wrong_dtype():
         nc.ntt_cols_dif_cuda(torch.zeros((16, 8), dtype=torch.uint8), 16)
     with pytest.raises(ValueError):
         nc.ntt_cols_cuda(torch.zeros((16,), dtype=torch.int64))
+    with pytest.raises(TypeError):
+        nc.ntt_cols_zero_tail_cuda(torch.zeros((2, 8), dtype=torch.int32), 3)
+    with pytest.raises(ValueError):
+        nc.ntt_cols_zero_tail_cuda(torch.zeros((2, 8), dtype=torch.int64), -1)
