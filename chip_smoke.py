@@ -24,7 +24,10 @@ starts and when it ends; any failure raises and exits non-zero.  The last
 line of standard output is the run's device summary.
 
 It also traces one warm quotient round with torch.profiler and prints the
-device's busy and idle shares of it.
+device's busy and idle shares of it, and (phase 8) measures the card's
+rate of independent 32-bit multiplies in four instruction forms and counts
+the multiply instructions of one field product in the SASS
+(plonky2_tpu_torch/csrc/probes/).
 
 It imports nothing of JAX or of the JAX package, needs one card, and writes
 nothing outside the kernels' build directory.
@@ -56,36 +59,45 @@ SEED = 0
 PROGRAM_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "plonky2_tpu_torch", "plonk", "programs",
                             "hash_tree_wide_ecc.npz")
-QUOTIENT_CHUNK = 1 << 20        # lanes per K6 launch (sweep below, PERF.md)
+QUOTIENT_CHUNK = 1 << 21        # lanes per K6 launch (sweep below, PERF.md)
 CHUNK_SWEEP = [1 << k for k in range(15, 22)]
 CHECK_LANES = 4096
 
 # Published H100 SXM peaks (NVIDIA data sheet; CUDA C Programming Guide,
 # arithmetic instruction throughput for compute capability 9.0: 64 32-bit
-# integer multiply-adds per clock per SM; 132 SMs at the 1.98 GHz boost
-# clock).  Both assume the full 700 W power limit.
+# integer multiply-adds and 64 64-bit floating-point multiply-adds per
+# clock per SM; 132 SMs at the 1.98 GHz boost clock).  All assume the full
+# 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 INT32_MULS_PER_S = 132 * 64 * 1.98e9
+FP64_FMAS_PER_S = 132 * 64 * 1.98e9
 
-# 32-bit multiplies one Poseidon permutation needs, counted on the fast
+# The products one Poseidon permutation needs, counted on the fast
 # partial-round schedule (plonky2's mds_partial_layer_init/_fast), the
-# cheapest known for this function: 8 full rounds of 12 x^7 S-boxes and the
-# dense 12x12 MDS, whose small coefficients take one product per 32-bit half
-# of a word (144 x 2); one dense 11x11 layer of full field constants before
-# the partial rounds; 22 partial rounds of one S-box and a sparse layer (22
-# products by full field constants, one by a small one).  An x^7 S-box is
-# four 64x64 products; a 64x64 product is four 32x32->64 products.
+# cheapest known for this function, in the forms K1/K2 compute them: 8 full
+# rounds of 12 x^7 S-boxes and the dense 12x12 MDS, whose small
+# coefficients take one product per 32-bit half of a word (144 x 2); one
+# dense 11x11 layer of full field constants before the partial rounds; 22
+# partial rounds of one S-box and a sparse layer (22 products by full field
+# constants, one by a small one).  A 64x64 product is four 32x32->64
+# products and a square three, so an x^7 S-box (x^2, x^3 = x^2 x,
+# x^4 = (x^2)^2, x^3 x^4) is 3 + 4 + 3 + 4.  K1/K2 run the full rounds' MDS
+# as exact float64 multiply-adds on the FP64 pipe and every other product
+# on the integer pipe; the two pipes issue side by side, so the operation
+# bound is the larger of their two times.
 #
 # Each 32x32->64 product counts as one result of the throughput table's row
 # "32-bit integer multiply, multiply-add, extended-precision multiply-add"
-# (one IMAD.WIDE.U32 instruction).  That is the fewest instructions the
-# products can take, so the bound stays a floor; if the wide form issues at
-# half that rate, the floor is twice as high.
-FIELD_MUL_MULS = 4   # one 64x64 -> 128 product
-_SBOX_MULS = 4 * FIELD_MUL_MULS
-_MDS_MULS = 144 * 2
-PERM_MULS = (8 * (12 * _SBOX_MULS + _MDS_MULS) + 11 * 11 * FIELD_MUL_MULS
+# (one IMAD.WIDE.U32 instruction), each float64 multiply-add as one of the
+# row "64-bit floating-point add, multiply, multiply-add".  These are the
+# fewest instructions the products can take, so the bound stays a floor;
+# phase 8 measures the rate at which the wide integer forms really issue.
+FIELD_MUL_MULS = 4     # one 64x64 -> 128 product
+FIELD_SQUARE_MULS = 3  # one 64-bit square
+_SBOX_MULS = 2 * FIELD_SQUARE_MULS + 2 * FIELD_MUL_MULS
+PERM_MULS = (8 * 12 * _SBOX_MULS + 11 * 11 * FIELD_MUL_MULS
              + 22 * (_SBOX_MULS + 22 * FIELD_MUL_MULS + 2))
+PERM_FP64_FMAS = 8 * 144 * 2
 
 KERNELS = {
     # C entry -> (name, source, TPU kernel it replaces)
@@ -213,27 +225,33 @@ class KernelRecorder:
 
 
 def launch_cost(name: str, args) -> tuple:
-    """(bytes, int32 multiplies) that one launch's work needs at least:
-    each input read once, each output written once."""
+    """(bytes, int32 multiplies, float64 multiply-adds) that one launch's
+    work needs at least: each input read once, each output written once."""
     from plonky2_tpu_torch.kernels import named_args
     a = named_args(name, args)
     if name == "plk_hash_leaves":
         L, N = a["L"], a["N"]
         perms = N * -(-L // 8)
-        return 8 * (L * N + 4 * N), perms * PERM_MULS
+        return (8 * (L * N + 4 * N), perms * PERM_MULS,
+                perms * PERM_FP64_FMAS)
     if name == "plk_compress_level":
         m = a["m"]
-        return 8 * (8 * m + 4 * m), m * PERM_MULS
+        return 8 * (8 * m + 4 * m), m * PERM_MULS, m * PERM_FP64_FMAS
     if name == "plk_constraint_program":
-        # the program's real 64x64 products on every lane; its inputs
-        # read once and outputs written once, plus the wave stream and bank
+        # the linear form's 64x64 products on every lane; the input rows it
+        # reads read once and its outputs written once, plus its op stream,
+        # index arrays and scalar bank
+        from plonky2_tpu_torch.plonk.constraint_program import (MUL_OPS,
+                                                                  linearize)
         prog, _ = flagship_program()
-        check(a["n_waves"] == prog.n_waves, "K6 ran another program")
+        lin = linearize(prog)
+        check((a["n_ops"], a["n_slots"]) == (lin.n_ops, lin.n_slots),
+              "K6 ran another program")
         C, n_out = a["C"], a["n_out"]
-        nbytes = (8 * (prog.n_inputs + n_out) * C
-                  + prog.n_waves * (4 + 16 * a["W"])
-                  + 8 * len(prog.bank_sids) + 4 * n_out)
-        return nbytes, prog.n_mul_ops() * FIELD_MUL_MULS * C
+        n_mul = int(np.isin(lin.fields()["opcode"], MUL_OPS).sum())
+        nbytes = (8 * (lin.n_read + n_out) * C + 8 * lin.n_ops
+                  + 4 * (lin.n_read + n_out) + 8 * a["bank_size"])
+        return nbytes, n_mul * FIELD_MUL_MULS * C, 0
     # column NTTs: K4's first rate_bits stages only copy rows
     B, n2, log_n1 = a["B"], a["n2"], a["log_n1"]
     n1 = 1 << log_n1
@@ -244,7 +262,7 @@ def launch_cost(name: str, args) -> tuple:
                   + (q * n2 if pre else 0) + (n1 * n2 if post else 0))
     muls = B * (n1 // 2) * n2 * (log_n1 - r) + B * n2 * (
         (q if pre else 0) + (n1 if post else 0))
-    return nbytes, muls * FIELD_MUL_MULS
+    return nbytes, muls * FIELD_MUL_MULS, 0
 
 
 @functools.lru_cache(maxsize=1)
@@ -307,11 +325,14 @@ def phase_kernels(dev) -> dict:
             r.update(kernel_ms_at_plain_shape=k_ms, plain_ms=p_ms,
                      plain_shape=label)
 
-    for L in (234, 2481):
-        leaves = rand_field(rng, (L, 1 << 14), dev)
-        compare("plk_hash_leaves", f"L={L} N=2^14",
+    for L, make in ((234, rand_field), (2481, rand_field),
+                    (234, boundary_field), (9, boundary_field)):
+        leaves = make(rng, (L, 1 << 14), dev)
+        kind = " boundary" if make is boundary_field else ""
+        compare("plk_hash_leaves", f"L={L} N=2^14{kind}",
                 lambda: pc.hash_leaves_cols_cuda(leaves),
-                lambda: pos.hash_leaves_cols(leaves), timed=L == 234)
+                lambda: pos.hash_leaves_cols(leaves),
+                timed=L == 234 and not kind)
     for label, level in (("m=2^14 digests", rand_field(rng, (4, 1 << 15), dev)),
                          ("m=2^14 boundary", boundary_field(rng, (4, 1 << 15), dev))):
         compare("plk_compress_level", label,
@@ -440,10 +461,9 @@ def timed_path(run, path, label, keep=lambda out: None):
             "of the warm wall)")
     cost = {}
     for name, args, _, _ in recs:
-        b, ops = launch_cost(name, args)
-        c = cost.setdefault(name, [0, 0])
-        c[0] += b
-        c[1] += ops
+        c = cost.setdefault(name, [0, 0, 0])
+        for j, x in enumerate(launch_cost(name, args)):
+            c[j] += x
     return out, {"cold_s": cold_s, "warm_s": warm_s, "launches": launches,
                  "kernel_ms": kernel_ms, "cost": cost, "peak_bytes": peak}
 
@@ -541,6 +561,7 @@ def phase_quotient(dev, rng, full):
     from plonky2_tpu_torch.field.goldilocks import P
     from plonky2_tpu_torch.fri.oracle import PolynomialBatch
     from plonky2_tpu_torch.ops import ntt
+    from plonky2_tpu_torch.plonk.constraint_program import linearize
     from plonky2_tpu_torch.plonk.prover import quotient_round
     prog, shape = flagship_program()
     check((shape.num_wires, shape.degree_bits, shape.rate_bits,
@@ -557,9 +578,12 @@ def phase_quotient(dev, rng, full):
         0, P, size=k, dtype=np.uint64)]
     nch = shape.num_challenges
     challenges = (draw(4), draw(nch), draw(nch), draw(nch))
+    lin = linearize(prog)
     log(f"  program: {prog.n_inputs} inputs, {prog.n_regs} registers, "
         f"{prog.n_waves} waves x {prog.wave_width}, {prog.n_ops} real ops "
-        f"({prog.n_mul_ops()} with a product); chunk {QUOTIENT_CHUNK} lanes")
+        f"({prog.n_mul_ops()} with a product); linear form: {lin.n_ops} ops "
+        f"in {lin.n_slots} slots, {lin.n_read} inputs read; chunk "
+        f"{QUOTIENT_CHUNK} lanes")
 
     def run(quotient):
         out = quotient_round(values, wires_batch, sigmas, shape, prog,
@@ -751,14 +775,81 @@ def check_partial_products(zspp, values, sigmas, shape, challenges, rng):
         "arithmetic")
 
 
+def phase_probes(dev) -> dict:
+    """The card's issue rate of independent 32x32 multiplies (mad.lo.u32,
+    mad.wide.u32 with a 64-bit addend, mul.wide.u32 and mad.hi.u32; CUDA
+    events over ~0.7 s of launches each) beside the rate the operation
+    bounds assume, and the multiply instructions of one field product in
+    the SASS, in goldilocks.cuh's form and in the older one of a * b
+    and __umul64hi (csrc/probes/)."""
+    import ctypes
+    import re
+    import torch
+    from plonky2_tpu_torch import kernels
+    info = kernels.build_probes()
+    log(f"  probes built in {info['seconds']:.1f} s")
+    lib = ctypes.CDLL(info["path"])
+    fn = lib.plk_probe_mul_rate
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    chains = lib.plk_probe_chains()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks, threads, iters = sms * 8, 256, 1 << 16
+    out = torch.empty(blocks * threads, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    res = {"sms": sms}
+    for mode, label in enumerate(("mad.lo.u32", "mad.wide.u32",
+                                  "mul.wide.u32", "mad.hi.u32")):
+        def launch():
+            rc = fn(out.data_ptr(), blocks, threads, iters, mode, dev.index,
+                    stream)
+            check(rc == 0, f"probe launch failed ({rc})")
+        one_ms, _ = cuda_ms(launch)
+        reps = max(1, int(700 / max(one_ms, 1e-3)))
+        ms, _ = cuda_ms(lambda: [launch() for _ in range(reps)],
+                        warmup=False)
+        rate = blocks * threads * chains * iters * reps / (ms / 1e3)
+        res[label] = rate
+        log(f"  {label}: {rate / 1e12:.3f} T products/s over {ms:.1f} ms "
+            f"({reps} launches; the bounds assume "
+            f"{INT32_MULS_PER_S / 1e12:.3f} T/s)")
+    dump = subprocess.run(
+        [os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump"),
+         "-sass", info["path"]], capture_output=True, text=True, timeout=120,
+        check=True).stdout
+    hist = {}
+    for block in dump.split("Function : ")[1:]:
+        name = block.split(None, 1)[0]
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?"
+                         r"([A-Z][A-Z0-9_.]*)", block)
+        hist[name] = {o: ops.count(o) for o in set(ops)}
+    base = next(v for k, v in hist.items() if "field_baseline_probe" in k)
+    for key, label in (("field_mul_probe", "mul_wide"),
+                       ("field_mul_split_probe", "mul_wide_split"),
+                       ("field_mul_umul64hi_probe", "umul64hi")):
+        ops = next(v for k, v in hist.items() if key in k)
+        diff = {o: ops.get(o, 0) - base.get(o, 0)
+                for o in set(ops) | set(base)}
+        diff = {o: n for o, n in sorted(diff.items()) if n}
+        # multiplies: IMAD forms other than the move, add and shift ones;
+        # IMAD.X is an add with carry on the same pipe
+        muls = sum(n for o, n in diff.items() if o.startswith(
+            ("IMAD", "IMUL")) and not o.startswith(
+            ("IMAD.MOV", "IMAD.IADD", "IMAD.SHL", "IMAD.X")))
+        res[f"field_product_muls_{label}"] = muls
+        log(f"  one field product, {label} form: {muls} multiply "
+            f"instructions; SASS beyond the baseline kernel: {diff}")
+    return res
+
+
 def kernels_line(kern, paths, smi) -> dict:
     """Each kernel's numbers summed over the main paths, with the split."""
     out = []
     for entry, (name, source, replaces) in KERNELS.items():
-        nbytes = sum(p["cost"].get(entry, (0, 0))[0] for p in paths.values())
-        muls = sum(p["cost"].get(entry, (0, 0))[1] for p in paths.values())
+        nbytes, muls, fmas = (sum(p["cost"].get(entry, (0, 0, 0))[j]
+                                  for p in paths.values()) for j in range(3))
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = muls / INT32_MULS_PER_S * 1e3
+        t_ops = max(muls / INT32_MULS_PER_S, fmas / FP64_FMAS_PER_S) * 1e3
         launches = {k: p["launches"][entry] for k, p in paths.items()}
         ms = {k: p["kernel_ms"].get(entry, 0.0) for k, p in paths.items()}
         check(sum(launches.values()) > 0, f"{entry} was never launched")
@@ -772,6 +863,7 @@ def kernels_line(kern, paths, smi) -> dict:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes": nbytes, "bound_int32_muls": muls,
+            "bound_fp64_fmas": fmas,
             "library_ms": None, "launches_by_path": launches,
             "ms_by_path": ms})
     return {"kernels": out, "card": smi}
@@ -801,6 +893,8 @@ def main() -> int:
         quot = phase_quotient(dev, rng, full)
     with phase("7 kernels line"):
         line = kernels_line(kern, {"commit": full, "quotient": quot}, smi)
+    with phase("8 int32 multiply rate and field-product SASS"):
+        line["probes"] = phase_probes(dev)
     print(json.dumps(line), flush=True)
     print(f"total seconds: {time.perf_counter() - T0:.1f}", flush=True)
     print(json.dumps({"ok": True, "device": {

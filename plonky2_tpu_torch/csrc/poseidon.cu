@@ -6,105 +6,206 @@
 // rounds, x^7, circulant + diagonal MDS, canonical digest), not how: the
 // TPU's int8 MXU planes and lane tiles have no counterpart here.
 //
-// Bound on an H100: integer operations.  A permutation needs ~6.7k 32x32
-// multiplies on the fast partial-round schedule (sparse partial-round MDS;
-// this kernel runs the plain schedule's ~10.5k: x^7 S-boxes as 64x64
-// products, a 12x12 MDS on 32-bit halves every round) per 8 words of input,
-// far above the card's int32 rate per byte of HBM, so memory is not the
-// limit.  Design: one thread per leaf (K1) or
-// node (K2); the 12-word state lives in registers; round constants and MDS
-// sit in __constant__ memory (every thread of a warp reads the same word);
-// a leaf's L words are a column of the (L, N) matrix, so neighbouring threads
-// load neighbouring addresses.
+// Bound on an H100: integer operations.  A permutation needs ~4.1k 32x32
+// products on the integer pipe and 2.3k float64 multiply-adds (the full
+// rounds' MDS) on the FP64 pipe, on the fast partial-round schedule, which
+// this kernel runs as the TPU kernel and plonky2_tpu/hash/poseidon.py:
+// poseidon_ints do: 4 full rounds; the first partial-round constant and
+// the dense 11x11 initial matrix; 22 partial rounds, each an S-box on s[0]
+// and a sparse layer (d = 25 s0 + sum w_hat[r][i] s[i],
+// s[i] += s0 v[r][i]); 4 full rounds.  That is far above the card's int32
+// rate per byte of HBM, so memory is not the limit.
+//
+// Design: one thread per leaf (K1) or node (K2); the 12-word state lives in
+// registers; all tables sit in __constant__ memory (every thread of a warp
+// reads the same word); a leaf's L words are a column of the (L, N)
+// matrix, so neighbouring threads load neighbouring addresses.  A thread
+// has many independent products in flight (twelve S-boxes a full round,
+// eleven dot terms a partial one), so it takes goldilocks.cuh's forms that
+// issue fastest (mul_wide_split, square_wide_split, reduce128_cc).
+// Full rounds run the small-coefficient MDS in exact float64 (mds).  The
+// sparse and initial layers' dot products add their 128-bit products into
+// one 160-bit accumulator (dot_*), reduced once per output.
+// __launch_bounds__(128, 1) lets a thread take 255 registers (two blocks
+// an SM); without the 1, or with 3 (168 registers), ptxas spills and the
+// kernel runs 9-17% slower (PERF.md).
 #include <cuda_runtime.h>
 
 #include "goldilocks.cuh"
-#include "poseidon_constants.h"  // generated at build time: PLK_RC, PLK_MDS
+#include "poseidon_constants.h"  // generated at build time: PLK_RC, PLK_MDS_F64, PLK_FAST_*
 
 namespace {
 
 constexpr int WIDTH = 12;
 constexpr int RATE = 8;
+constexpr int THREADS = 128;
 
 __device__ __forceinline__ uint64_t sbox(uint64_t x) {
-  uint64_t x2 = gl::mul_nc(x, x);
-  uint64_t x3 = gl::mul_nc(x2, x);
-  uint64_t x4 = gl::mul_nc(x2, x2);
-  return gl::mul_nc(x3, x4);
+  uint64_t x2 = gl::square_nc_split(x);
+  uint64_t x3 = gl::mul_nc_split(x2, x);
+  uint64_t x4 = gl::square_nc_split(x2);
+  return gl::mul_nc_split(x3, x4);
+}
+
+// (al, ah) = sum_c M[r][c] * (lo[c], hi[c]) -> state word r, below 2^64.
+__device__ __forceinline__ uint64_t mds_combine(uint64_t al, uint64_t ah) {
+  // al + ah * 2^32 as a 128-bit value (al, ah < 2^42)
+  uint64_t low = al + (ah << 32);
+  uint64_t high = (ah >> 32) + (low < al ? 1 : 0);
+  return gl::reduce128_cc(low, high);
 }
 
 // state <- M * state for any 64-bit representatives; results below 2^64.
+// The small coefficients multiply the 32-bit halves in float64 on the FP64
+// pipe, which nothing else uses: halves, products and sums are integers
+// below 2^53, so every DFMA is exact.  2^52 + x has x in its low mantissa
+// bits, which converts both ways with one DADD and one logic op.  (As
+// 64-bit integer multiply-adds, IMAD.WIDE.U32 with a 64-bit addend, the
+// kernel took 6% longer: PERF.md.)
+constexpr double TWO52 = 4503599627370496.0;
+
+__device__ __forceinline__ double u32_to_f64(uint32_t x) {
+  return __longlong_as_double(0x4330000000000000ll | (long long)x) - TWO52;
+}
+
+__device__ __forceinline__ uint64_t f64_to_u64(double d) {  // integral, 0 <= d < 2^52
+  return (uint64_t)__double_as_longlong(d + TWO52) & 0xFFFFFFFFFFFFFull;
+}
+
 __device__ __forceinline__ void mds(uint64_t s[WIDTH]) {
-  uint32_t lo[WIDTH], hi[WIDTH];
+  double lo[WIDTH], hi[WIDTH];
 #pragma unroll
   for (int c = 0; c < WIDTH; c++) {
-    lo[c] = (uint32_t)s[c];
-    hi[c] = (uint32_t)(s[c] >> 32);
+    lo[c] = u32_to_f64((uint32_t)s[c]);
+    hi[c] = u32_to_f64((uint32_t)(s[c] >> 32));
   }
 #pragma unroll
   for (int r = 0; r < WIDTH; r++) {
-    uint64_t al = 0, ah = 0;
+    double al = 0, ah = 0;
 #pragma unroll
     for (int c = 0; c < WIDTH; c++) {
-      uint32_t m = PLK_MDS[r * WIDTH + c];
-      al += (uint64_t)m * lo[c];
-      ah += (uint64_t)m * hi[c];
+      const double m = PLK_MDS_F64[r * WIDTH + c];
+      al = fma(m, lo[c], al);
+      ah = fma(m, hi[c], ah);
     }
-    // al + ah * 2^32 as a 128-bit value (al, ah < 2^42)
-    uint64_t low = al + (ah << 32);
-    uint64_t high = (ah >> 32) + (low < al ? 1 : 0);
-    s[r] = gl::reduce128(low, high);
+    s[r] = mds_combine(f64_to_u64(al), f64_to_u64(ah));
   }
 }
 
-__device__ __forceinline__ void add_round_constants(uint64_t s[WIDTH], int r) {
+__device__ __forceinline__ void full_round(uint64_t s[WIDTH], int r) {
 #pragma unroll
-  for (int i = 0; i < WIDTH; i++) s[i] = gl::add_nc(s[i], PLK_RC[r * WIDTH + i]);
+  for (int i = 0; i < WIDTH; i++) s[i] = sbox(gl::add_nc(s[i], PLK_RC[r * WIDTH + i]));
+  mds(s);
+}
+
+// A sum of up to 2^32 128-bit products as 160 bits: five 32-bit limbs,
+// little end first, added with one carry chain per product.
+struct Dot {
+  uint32_t w[5];
+};
+
+__device__ __forceinline__ void dot_init(Dot& d, uint64_t lo, uint64_t hi) {
+  d.w[0] = (uint32_t)lo;
+  d.w[1] = (uint32_t)(lo >> 32);
+  d.w[2] = (uint32_t)hi;
+  d.w[3] = (uint32_t)(hi >> 32);
+  d.w[4] = 0;
+}
+
+// d += a * b for any 64-bit a, b.
+__device__ __forceinline__ void dot_add(Dot& d, uint64_t a, uint64_t b) {
+  uint64_t lo, hi;
+  gl::mul_wide_split(a, b, lo, hi);
+  asm("{\n\t.reg .u32 l0, l1, h0, h1;\n\t"
+      "mov.b64 {l0, l1}, %5;\n\t"
+      "mov.b64 {h0, h1}, %6;\n\t"
+      "add.cc.u32 %0, %0, l0;\n\t"
+      "addc.cc.u32 %1, %1, l1;\n\t"
+      "addc.cc.u32 %2, %2, h0;\n\t"
+      "addc.cc.u32 %3, %3, h1;\n\t"
+      "addc.u32 %4, %4, 0;\n\t}"
+      : "+r"(d.w[0]), "+r"(d.w[1]), "+r"(d.w[2]), "+r"(d.w[3]), "+r"(d.w[4])
+      : "l"(lo), "l"(hi));
+}
+
+// The sum mod p as a representative below 2^64: 2^128 == -2^32 (mod p),
+// and the top limb (a count of carries) times 2^32 stays far below p.
+__device__ __forceinline__ uint64_t dot_reduce(const Dot& d) {
+  uint64_t lo = ((uint64_t)d.w[1] << 32) | d.w[0];
+  uint64_t hi = ((uint64_t)d.w[3] << 32) | d.w[2];
+  uint64_t r = gl::reduce128_cc(lo, hi);
+  uint64_t t = (uint64_t)d.w[4] << 32;
+  uint64_t out = r - t;
+  return r < t ? out - gl::EPS : out;
+}
+
+// The fast schedule's 22 partial rounds, from the state after the initial
+// matrix (plonky2 mds_partial_layer_fast).
+__device__ __forceinline__ void partial_rounds(uint64_t s[WIDTH]) {
+#pragma unroll 1
+  for (int r = 0; r < 22; r++) {
+    // the constant after the S-box is 0 in the last round
+    const uint64_t s0 = gl::add_nc(sbox(s[0]), PLK_FAST_PRC[r]);
+    Dot d;
+    uint64_t lo, hi;
+    gl::mul_wide_split(s0, PLK_FAST_MS0, lo, hi);
+    dot_init(d, lo, hi);
+#pragma unroll
+    for (int i = 1; i < WIDTH; i++) dot_add(d, s[i], PLK_FAST_WHAT[r * 11 + i - 1]);
+#pragma unroll
+    for (int i = 1; i < WIDTH; i++) {
+      // s[i] + s0 * v < 2^128, reduced once.  The product in the addend
+      // form: its multiply-pipe cycles balance the dot products'
+      // integer-ALU ones (2% faster, PERF.md).
+      gl::mul_wide(s0, PLK_FAST_VS[r * 11 + i - 1], lo, hi);
+      lo += s[i];
+      hi += lo < s[i] ? 1 : 0;
+      s[i] = gl::reduce128_cc(lo, hi);
+    }
+    s[0] = dot_reduce(d);
+  }
 }
 
 __device__ void permute(uint64_t s[WIDTH]) {
 #pragma unroll 1
-  for (int r = 0; r < 4; r++) {
-    add_round_constants(s, r);
+  for (int r = 0; r < 4; r++) full_round(s, r);
+  // first partial-round constant, then the initial matrix (row and column
+  // 0 pass s[0] through)
 #pragma unroll
-    for (int i = 0; i < WIDTH; i++) s[i] = sbox(s[i]);
-    mds(s);
-  }
-#pragma unroll 1
-  for (int r = 4; r < 26; r++) {
-    add_round_constants(s, r);
-    s[0] = sbox(s[0]);
-    mds(s);
-  }
-#pragma unroll 1
-  for (int r = 26; r < 30; r++) {
-    add_round_constants(s, r);
+  for (int i = 0; i < WIDTH; i++) s[i] = gl::add_nc(s[i], PLK_FAST_FIRST[i]);
+  uint64_t t[WIDTH];
+  t[0] = s[0];
 #pragma unroll
-    for (int i = 0; i < WIDTH; i++) s[i] = sbox(s[i]);
-    mds(s);
+  for (int c = 1; c < WIDTH; c++) {
+    Dot d;
+    dot_init(d, 0, 0);
+#pragma unroll
+    for (int r = 1; r < WIDTH; r++) dot_add(d, s[r], PLK_FAST_INIT[(r - 1) * 11 + c - 1]);
+    t[c] = dot_reduce(d);
   }
+#pragma unroll
+  for (int i = 0; i < WIDTH; i++) s[i] = t[i];
+  partial_rounds(s);
+#pragma unroll 1
+  for (int r = 26; r < 30; r++) full_round(s, r);
 }
 
-__global__ void hash_leaves_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
-                                   int64_t L, int64_t N) {
+__global__ void __launch_bounds__(THREADS, 1)
+hash_leaves_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, int64_t L,
+                   int64_t N) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N) return;
   uint64_t s[WIDTH];
 #pragma unroll
   for (int j = 0; j < WIDTH; j++) s[j] = 0;
-  int64_t full = L / RATE;
-  int rem = (int)(L % RATE);
-  for (int64_t k = 0; k < full; k++) {
+  // rate-8 blocks overwrite rows [0, 8); a last block of w < 8 rows
+  // overwrites rows [0, w).  One call site keeps one copy of permute.
+  for (int64_t k = 0; k * RATE < L; k++) {
     const uint64_t* col = in + k * RATE * N + i;
-#pragma unroll
-    for (int j = 0; j < RATE; j++) s[j] = col[j * N];
-    permute(s);
-  }
-  if (rem) {
-    const uint64_t* col = in + full * RATE * N + i;
+    const int64_t w = L - k * RATE;
 #pragma unroll
     for (int j = 0; j < RATE; j++)
-      if (j < rem) s[j] = col[j * N];
+      if (j < w) s[j] = col[j * N];
     permute(s);
   }
 #pragma unroll
@@ -112,8 +213,8 @@ __global__ void hash_leaves_kernel(const uint64_t* __restrict__ in, uint64_t* __
 }
 
 // in: (4, 2m) level, node pairs (2i, 2i+1) adjacent; out: (4, m) parents.
-__global__ void compress_level_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
-                                      int64_t m) {
+__global__ void __launch_bounds__(THREADS, 1)
+compress_level_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, int64_t m) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
   uint64_t s[WIDTH];
@@ -127,8 +228,6 @@ __global__ void compress_level_kernel(const uint64_t* __restrict__ in, uint64_t*
 #pragma unroll
   for (int j = 0; j < 4; j++) out[j * m + i] = gl::canon(s[j]);
 }
-
-constexpr int THREADS = 128;
 
 }  // namespace
 

@@ -1,14 +1,18 @@
 """Poseidon-12 over Goldilocks: constants and the plain torch versions.
 
 The port's counterpart of plonky2_tpu/hash/poseidon.py (constants, scalar
-permutation) and hash/poseidon_jax.py (``poseidon_t``, ``hash_leaves_cols``,
-``compress_pairs_cols``, in the same (12, B) column layout).  Width 12,
-4 + 22 + 4 rounds, x^7 S-box, circulant + diagonal MDS, the naive round
-schedule.  ``hash_leaves_cols`` and ``compress_pairs_cols`` are the plain
-versions of kernels K1 and K2 (hash/poseidon_cuda.py).
+permutation), hash/poseidon_jax.py (``poseidon_t``, ``hash_leaves_cols``,
+``compress_pairs_cols``, in the same (12, B) column layout) and
+hash/poseidon_wires_jax.py (``poseidon_fast_t``).  Width 12, 4 + 22 + 4
+rounds, x^7 S-box, circulant + diagonal MDS.  ``poseidon_t`` runs the naive
+round schedule, ``poseidon_fast_t`` the fast partial-round one that kernels
+K1 and K2 run (hash/poseidon_cuda.py); both give the same permutation.
+``hash_leaves_cols`` and ``compress_pairs_cols`` are the plain versions of
+K1 and K2.
 
-The round constants are the port's copy of
-plonky2_tpu/hash/poseidon_round_constants.npy.
+The round constants and the fast schedule's tables are the port's copies
+of plonky2_tpu/hash/poseidon_round_constants.npy and
+poseidon_fast_constants.npz.
 """
 from __future__ import annotations
 
@@ -41,6 +45,31 @@ if ALL_ROUND_CONSTANTS.shape != (WIDTH * N_ROUNDS,):
 # M[r, c] = CIRC[(c - r) mod 12] + (r == c) * DIAG[r]
 _idx = (np.arange(WIDTH)[None, :] - np.arange(WIDTH)[:, None]) % WIDTH
 MDS_MATRIX = MDS_CIRC[_idx] + np.diag(MDS_DIAG)
+
+# The fast partial-round schedule (plonky2 poseidon.rs, mds_partial_layer_
+# init/_fast): after the first 4 full rounds add FIRST_ROUND_CONSTANT, apply
+# the 11x11 INITIAL_MATRIX to s[1:], then run 22 rounds of an S-box on s[0],
+# ROUND_CONSTANTS[r] (none in the last round), s[0] <- MS0 s0 + W_HATS[r] .
+# s[1:] and s[1:] += s0 VS[r].
+FAST_CONSTANTS_PATH = os.path.join(os.path.dirname(ROUND_CONSTANTS_PATH),
+                                   "poseidon_fast_constants.npz")
+with np.load(FAST_CONSTANTS_PATH) as _fast:
+    FAST_PARTIAL_ROUND_CONSTANTS = _fast["fast_partial_round_constants"]
+    FAST_PARTIAL_FIRST_ROUND_CONSTANT = _fast[
+        "fast_partial_first_round_constant"]
+    FAST_PARTIAL_ROUND_VS = _fast["fast_partial_round_vs"]
+    FAST_PARTIAL_ROUND_W_HATS = _fast["fast_partial_round_w_hats"]
+    FAST_PARTIAL_ROUND_INITIAL_MATRIX = _fast[
+        "fast_partial_round_initial_matrix"]
+FAST_MS0 = int(MDS_CIRC[0] + MDS_DIAG[0])
+
+
+def fast_round_constants_after_sbox() -> np.ndarray:
+    """(22,) the constant added after partial round r's S-box: 0 in the
+    last round."""
+    prc = np.zeros(N_PARTIAL_ROUNDS, dtype=np.uint64)
+    prc[:-1] = FAST_PARTIAL_ROUND_CONSTANTS[:N_PARTIAL_ROUNDS - 1]
+    return prc
 
 
 def is_full_round(r: int) -> bool:
@@ -81,6 +110,49 @@ def poseidon_t(state: torch.Tensor) -> torch.Tensor:
         else:
             state = torch.cat([_sbox(state[:1]), state[1:]])
         state = _mds(state, mds)
+    return state
+
+
+@functools.lru_cache(maxsize=None)
+def _fast_tables(device: str):
+    t = lambda a, *shape: from_u64(np.ascontiguousarray(  # noqa: E731
+        a).reshape(*a.shape, *shape), device)
+    return (t(FAST_PARTIAL_FIRST_ROUND_CONSTANT, 1),
+            t(FAST_PARTIAL_ROUND_INITIAL_MATRIX, 1),
+            t(fast_round_constants_after_sbox()),
+            t(FAST_PARTIAL_ROUND_W_HATS, 1), t(FAST_PARTIAL_ROUND_VS, 1))
+
+
+def _sum_rows(x):
+    """Modular sum over axis 0."""
+    acc = x[0]
+    for row in x[1:]:
+        acc = gf.add(acc, row)
+    return acc
+
+
+def poseidon_fast_t(state: torch.Tensor) -> torch.Tensor:
+    """The permutation on a (12, B) int64 state on the fast partial-round
+    schedule, canonical in and out; equal to ``poseidon_t``."""
+    rc, mds = _tables(str(state.device))
+    first, init, prc, w_hats, vs = _fast_tables(str(state.device))
+
+    def full_round(st, r):
+        return _mds(_sbox(gf.add_nc(st, rc[r])), mds)
+
+    for r in range(HALF_N_FULL_ROUNDS):
+        state = full_round(state, r)
+    state = gf.add_nc(state, first)
+    # new[c] = sum_r init[r - 1][c - 1] * state[r] for c >= 1
+    rest = _sum_rows(gf.mul(state[1:, None], init))
+    s0 = state[0]
+    for r in range(N_PARTIAL_ROUNDS):
+        x0 = gf.add(_sbox(s0), prc[r])
+        s0 = gf.add(gf.mul(x0, FAST_MS0), _sum_rows(gf.mul(rest, w_hats[r])))
+        rest = gf.add(rest, gf.mul(x0[None], vs[r]))
+    state = torch.cat([s0[None], rest])
+    for r in range(HALF_N_FULL_ROUNDS + N_PARTIAL_ROUNDS, N_ROUNDS):
+        state = full_round(state, r)
     return state
 
 

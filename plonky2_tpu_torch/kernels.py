@@ -21,6 +21,7 @@ import shutil
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -52,11 +53,12 @@ SIGNATURES = {
                          ("pre", _P), ("post", _P), ("B", _LL), ("q", _LL),
                          ("log_n1", _I), ("n2", _LL), ("log_t", _I),
                          ("device", _I), ("stream", _P)),
-    "plk_constraint_program": (("regs", _P), ("out", _P), ("opcodes", _P),
-                               ("slots", _P), ("bank", _P),
-                               ("out_regs", _P), ("n_waves", _I), ("W", _I),
-                               ("n_out", _I), ("C", _LL), ("device", _I),
-                               ("stream", _P)),
+    "plk_constraint_program": (("in", _P), ("out", _P), ("ops", _P),
+                               ("n_ops", _I), ("bank", _P),
+                               ("bank_size", _I), ("input_slot", _P),
+                               ("out_operands", _P),
+                               ("n_out", _I), ("n_slots", _I), ("C", _LL),
+                               ("device", _I), ("stream", _P)),
 }
 
 
@@ -80,45 +82,52 @@ def nvcc_path() -> str:
 
 def _poseidon_header() -> str:
     """__constant__ tables for csrc/poseidon.cu from the port's constants
-    (the .npy stays the one source of the round constants)."""
+    (the .npy and .npz stay the one source of the round constants and of
+    the fast partial-round schedule's tables)."""
     from .hash import poseidon as pos
-    rc = ", ".join(f"{int(c)}ull" for c in pos.ALL_ROUND_CONSTANTS)
-    mds = ", ".join(str(int(m)) for m in pos.MDS_MATRIX.reshape(-1))
+
+    def table(ctype, name, values, suffix="ull"):
+        vals = ", ".join(f"{int(v)}{suffix}" for v in np.ravel(values))
+        return (f"__constant__ {ctype} {name}[{np.size(values)}] = "
+                f"{{{vals}}};\n")
+
     return ("#pragma once\n#include <cstdint>\n"
-            f"__constant__ uint64_t PLK_RC[{pos.ALL_ROUND_CONSTANTS.size}] = {{{rc}}};\n"
-            f"__constant__ uint32_t PLK_MDS[{pos.MDS_MATRIX.size}] = {{{mds}}};\n")
+            + table("uint64_t", "PLK_RC", pos.ALL_ROUND_CONSTANTS)
+            + table("double", "PLK_MDS_F64", pos.MDS_MATRIX, ".0")
+            + table("uint64_t", "PLK_FAST_FIRST",
+                    pos.FAST_PARTIAL_FIRST_ROUND_CONSTANT)
+            + table("uint64_t", "PLK_FAST_INIT",
+                    pos.FAST_PARTIAL_ROUND_INITIAL_MATRIX)
+            + table("uint64_t", "PLK_FAST_PRC",
+                    pos.fast_round_constants_after_sbox())
+            + table("uint64_t", "PLK_FAST_WHAT", pos.FAST_PARTIAL_ROUND_W_HATS)
+            + table("uint64_t", "PLK_FAST_VS", pos.FAST_PARTIAL_ROUND_VS)
+            + f"constexpr uint64_t PLK_FAST_MS0 = {pos.FAST_MS0}ull;\n")
 
 
-def _sources():
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def _sources(directory: str = CSRC):
+    return sorted(glob.glob(os.path.join(directory, "*.cu")))
 
 
-def _build_key(header: str) -> str:
+def _build_key(header: str, directory: str = CSRC) -> str:
     h = hashlib.sha256(header.encode())
     h.update(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(glob.glob(os.path.join(CSRC, "*"))):
-        with open(path, "rb") as f:
-            h.update(os.path.basename(path).encode() + f.read())
+    for d in sorted({CSRC, directory}):
+        for path in sorted(glob.glob(os.path.join(d, "*"))):
+            if os.path.isfile(path):
+                with open(path, "rb") as f:
+                    h.update(os.path.basename(path).encode() + f.read())
     return h.hexdigest()[:16]
 
 
-def build() -> dict:
-    """Compile the library if this source tree has not been built yet:
-    one nvcc process per source, run in parallel, then one link.
-    Returns {"path", "seconds", "log"} (seconds 0.0 when reused)."""
-    header = _poseidon_header()
-    out_dir = os.path.join(BUILD_ROOT, _build_key(header))
-    lib_path = os.path.join(out_dir, "libplonky2_tpu_torch.so")
-    if os.path.isfile(lib_path):
-        return {"path": lib_path, "seconds": 0.0, "log": ""}
+def _compile(sources, out_dir: str, lib_path: str) -> dict:
+    """One nvcc process per source, run in parallel, then one link."""
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "poseidon_constants.h"), "w") as f:
-        f.write(header)
     nvcc = nvcc_path()
     tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
     jobs = []
-    for src in _sources():
+    for src in sources:
         obj = os.path.join(out_dir, os.path.basename(src) + f".{tag}.o")
         cmd = [nvcc, *NVCC_FLAGS, "-I", out_dir, "-I", CSRC, "-c", "-o",
                obj, src]
@@ -145,6 +154,34 @@ def build() -> dict:
         os.remove(obj)
     return {"path": lib_path, "seconds": time.perf_counter() - t0,
             "log": "\n".join(logs)}
+
+
+def build() -> dict:
+    """Compile the library if this source tree has not been built yet:
+    one nvcc process per source, run in parallel, then one link.
+    Returns {"path", "seconds", "log"} (seconds 0.0 when reused)."""
+    header = _poseidon_header()
+    out_dir = os.path.join(BUILD_ROOT, _build_key(header))
+    lib_path = os.path.join(out_dir, "libplonky2_tpu_torch.so")
+    if os.path.isfile(lib_path):
+        return {"path": lib_path, "seconds": 0.0, "log": ""}
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "poseidon_constants.h"), "w") as f:
+        f.write(header)
+    return _compile(_sources(), out_dir, lib_path)
+
+
+PROBES = os.path.join(CSRC, "probes")
+
+
+def build_probes() -> dict:
+    """Compile csrc/probes/ (measurement probes for chip_smoke.py, which
+    no main path runs) into a library of their own, as ``build`` does."""
+    out_dir = os.path.join(BUILD_ROOT, "probes-" + _build_key("", PROBES))
+    lib_path = os.path.join(out_dir, "libprobes.so")
+    if os.path.isfile(lib_path):
+        return {"path": lib_path, "seconds": 0.0, "log": ""}
+    return _compile(_sources(PROBES), out_dir, lib_path)
 
 
 @functools.lru_cache(maxsize=None)

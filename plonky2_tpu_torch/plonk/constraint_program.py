@@ -15,12 +15,16 @@ and padded slots all write the dump register n_regs - 1, where the last
 write wins.  Operand ``b`` is a bank slot for the scalar opcodes (ADDS,
 SUBS, MULS, MULADDS) and a register otherwise.
 
-``run_plain`` is the plain PyTorch version of kernel K6
-(plonk/constraint_program_cuda.py).
+``linearize`` turns the wave program into the straight op stream that
+kernel K6 (plonk/constraint_program_cuda.py) runs: the real ops in an order
+that keeps few values live, each value in one of a few slots, inputs read
+at their use.  ``run_plain_linear`` is the plain PyTorch version of that
+kernel; ``run_plain`` runs the wave program itself, and the two agree.
 """
 from __future__ import annotations
 
 import functools
+import heapq
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -182,6 +186,264 @@ def _plain_waves(prog: ConstraintProgram, device: str):
         out.append((int(prog.wave_opcodes[w]), *t,
                     int(pads[-1]) if pads.size else None))
     return tuple(out)
+
+
+# -- the linear form that kernel K6 runs ------------------------------------
+
+# A linear op is one uint64: opcode (4 bits) | dst slot (12) | a (16) | b (16)
+# | c (16), low bits first.  An operand is a slot, or with OPERAND_INPUT set
+# a row of the compact input matrix (``LinearProgram.input_rows``); with
+# OPERAND_KEEP also set, the value read is also stored into slot
+# ``input_slot[row]`` for later ops (an input's first use).  Operand b of
+# the scalar opcodes is a bank slot; c is read only by MULADD and MULADDS.
+OPERAND_INPUT = 0x8000
+OPERAND_KEEP = 0x4000
+OPERAND_INDEX = 0x3FFF
+MAX_SLOTS = 1 << 12
+
+
+@dataclass(eq=False)
+class LinearProgram:
+    ops: np.ndarray            # (n_ops,) uint64, packed as above
+    n_slots: int               # slots a lane needs (the most values live)
+    input_rows: np.ndarray     # (n_read,) int32: program input of each row
+    input_slot: np.ndarray     # (n_read,) int32: slot of a kept row, else -1
+    out_operands: np.ndarray   # (n_outputs,) int32: operand of each output
+    n_inputs: int              # the wave program's input count
+
+    @property
+    def n_ops(self) -> int:
+        return int(self.ops.shape[0])
+
+    @property
+    def n_read(self) -> int:
+        return int(self.input_rows.shape[0])
+
+    def fields(self) -> dict:
+        """The packed ops' fields as int64 arrays: opcode, dst, a, b, c."""
+        o = self.ops.astype(np.uint64)
+        f = lambda sh, bits: ((o >> np.uint64(sh))  # noqa: E731
+                              & np.uint64((1 << bits) - 1)).astype(np.int64)
+        return {"opcode": f(0, 4), "dst": f(4, 12), "a": f(16, 16),
+                "b": f(32, 16), "c": f(48, 16)}
+
+    def compact_inputs(self, inputs: torch.Tensor) -> torch.Tensor:
+        """(n_read, C) rows the program reads, from (n_inputs, C) inputs, or
+        the inputs themselves when they already are those rows."""
+        if inputs.shape[0] == self.n_read:
+            return inputs
+        if inputs.shape[0] != self.n_inputs:
+            raise ValueError(f"inputs: {inputs.shape[0]} rows, expected "
+                             f"{self.n_inputs} or {self.n_read}")
+        rows = torch.from_numpy(self.input_rows.astype(np.int64))
+        return inputs.index_select(0, rows.to(inputs.device))
+
+
+def _ssa(prog: ConstraintProgram):
+    """The wave program's real ops as SSA: values 0..n_inputs-1 are the
+    inputs, value n_inputs + k is op k's result.  Returns (ops, outputs),
+    ops a list of (opcode, a, b, c) with a and c value ids (c = -1 unless
+    MULADD/MULADDS) and b a value id or, for the scalar opcodes, a bank
+    slot."""
+    cur = {r: r for r in range(prog.n_inputs)}
+    dump = prog.dump_reg
+    ops = []
+
+    def read(r, w):
+        if r not in cur:
+            raise ValueError(f"wave {w} reads register {r} before any write")
+        return cur[r]
+
+    for w in range(prog.n_waves):
+        code = int(prog.wave_opcodes[w])
+        real = [k for k in range(prog.wave_width)
+                if prog.wave_dst[w, k] != dump]
+        new = []
+        for k in real:
+            a = read(int(prog.wave_a[w, k]), w)
+            b = (int(prog.wave_b[w, k]) if code in SCALAR_B
+                 else read(int(prog.wave_b[w, k]), w))
+            c = (read(int(prog.wave_c[w, k]), w)
+                 if code in (MULADD, MULADDS) else -1)
+            new.append((int(prog.wave_dst[w, k]), (code, a, b, c)))
+        for d, op in new:               # every read of a wave comes first
+            cur[d] = prog.n_inputs + len(ops)
+            ops.append(op)
+    outs = [read(int(r), prog.n_waves) for r in prog.out_regs]
+    return ops, outs
+
+
+def _vector_operands(op) -> tuple:
+    code, a, b, c = op
+    vals = [a]
+    if code not in SCALAR_B:
+        vals.append(b)
+    if c >= 0:
+        vals.append(c)
+    return tuple(dict.fromkeys(vals))          # distinct, in operand order
+
+
+@functools.lru_cache(maxsize=16)
+def linearize(prog: ConstraintProgram) -> LinearProgram:
+    """The wave program as a straight stream of its real ops, for kernel K6.
+
+    Ops no output depends on are dropped, and so are the padded slots.  The
+    rest run in a greedy list schedule: of the ops whose operands are
+    computed, the one that leaves the fewest values live (it frees the
+    operands it reads last; an input it reads first takes a slot only if a
+    later op reads it too), the latest in wave order on a tie (which
+    finishes one chain of work before it starts the next).  Values then
+    take the lowest free slot; an output's value stays in its slot to the
+    end.  Field arithmetic is exact, so any order gives the same outputs.
+    Deterministic; cached per program."""
+    ops, outs = _ssa(prog)
+    n_in = prog.n_inputs
+    # dead-op elimination, backwards from the outputs
+    live = np.zeros(len(ops), dtype=bool)
+    stack = [v - n_in for v in outs if v >= n_in]
+    while stack:
+        k = stack.pop()
+        if live[k]:
+            continue
+        live[k] = True
+        stack.extend(v - n_in for v in _vector_operands(ops[k])
+                     if v >= n_in and not live[v - n_in])
+    order_in = np.flatnonzero(live).tolist()
+    operands = {k: _vector_operands(ops[k]) for k in order_in}
+    remaining = {}        # value -> ops (and outputs) still to read it
+    for k in order_in:
+        for v in operands[k]:
+            remaining[v] = remaining.get(v, 0) + 1
+    for v in outs:
+        remaining[v] = remaining.get(v, 0) + 1
+    readers = {}
+    pending = {}
+    for k in order_in:
+        deps = [v for v in operands[k] if v >= n_in]
+        pending[k] = len(deps)
+        for v in deps:
+            readers.setdefault(v, []).append(k)
+
+    in_slot = set()
+
+    def delta(k):
+        d = 1
+        for v in operands[k]:
+            if v in in_slot:
+                d -= remaining[v] == 1
+            elif remaining[v] > 1:           # an input read first, kept
+                d += 1
+        return d
+
+    ready = {k for k in order_in if pending[k] == 0}
+    schedule = []
+    while ready:
+        k = min(ready, key=lambda j: (delta(j), -j))
+        ready.remove(k)
+        schedule.append(k)
+        for v in operands[k]:
+            remaining[v] -= 1
+            if remaining[v] and v < n_in:
+                in_slot.add(v)
+            elif not remaining[v]:
+                in_slot.discard(v)
+        in_slot.add(n_in + k)
+        for j in readers.get(n_in + k, ()):
+            pending[j] -= 1
+            if pending[j] == 0:
+                ready.add(j)
+
+    # slots, in schedule order
+    uses = {}
+    for k in schedule:
+        for v in operands[k]:
+            uses[v] = uses.get(v, 0) + 1
+    for v in outs:
+        uses[v] = uses.get(v, 0) + 1
+    read_inputs = sorted({v for k in schedule for v in operands[k]
+                          if v < n_in} | {v for v in outs if v < n_in})
+    row_of = {v: i for i, v in enumerate(read_inputs)}
+    input_slot = np.full(len(read_inputs), -1, dtype=np.int32)
+    free, n_slots, slot_of = [], 0, {}
+
+    def take():
+        nonlocal n_slots
+        if free:
+            return heapq.heappop(free)
+        n_slots += 1
+        return n_slots - 1
+
+    packed = []
+    for k in schedule:
+        code, a, b, c = ops[k]
+        enc = {}
+        for v in operands[k]:                # keeps first: they stay live
+            if v in slot_of:
+                enc[v] = slot_of[v]
+            elif uses[v] > 1:
+                slot_of[v] = input_slot[row_of[v]] = take()
+                enc[v] = OPERAND_INPUT | OPERAND_KEEP | row_of[v]
+            else:
+                enc[v] = OPERAND_INPUT | row_of[v]
+        for v in operands[k]:
+            uses[v] -= 1
+            if not uses[v] and v in slot_of:
+                heapq.heappush(free, slot_of.pop(v))
+        slot_of[n_in + k] = dst = take()
+        fb = b if code in SCALAR_B else enc[b]
+        if code in SCALAR_B and b > OPERAND_INDEX:
+            raise ValueError(f"bank slot {b} does not fit an operand")
+        packed.append(code | dst << 4 | enc[a] << 16 | fb << 32
+                      | (enc[c] if c >= 0 else 0) << 48)
+    if n_slots > MAX_SLOTS or len(read_inputs) > OPERAND_INDEX + 1:
+        raise ValueError(f"{n_slots} slots and {len(read_inputs)} input "
+                         "rows do not fit the op format")
+    out_ops = [slot_of[v] if v in slot_of else OPERAND_INPUT | row_of[v]
+               for v in outs]
+    return LinearProgram(
+        ops=np.array(packed, dtype=np.uint64), n_slots=n_slots,
+        input_rows=np.array(read_inputs, dtype=np.int32),
+        input_slot=input_slot, out_operands=np.array(out_ops, np.int32),
+        n_inputs=n_in)
+
+
+def run_plain_linear(lin: LinearProgram, inputs: torch.Tensor,
+                     bank: torch.Tensor) -> torch.Tensor:
+    """The plain version of kernel K6: the linear program on C lanes.
+    ``inputs`` is (n_inputs, C) or the (n_read, C) rows it reads; ``bank``
+    the (bank_size,) scalar bank.  Returns (n_outputs, C)."""
+    x_in = lin.compact_inputs(inputs)
+    C = x_in.shape[-1]
+    slots = x_in.new_zeros((lin.n_slots, C))
+    bank = bank.to(x_in.device)
+
+    def fetch(f):
+        if f & OPERAND_INPUT:
+            row = f & OPERAND_INDEX
+            if f & OPERAND_KEEP:
+                slots[int(lin.input_slot[row])] = x_in[row]
+            return x_in[row]
+        return slots[f]
+
+    f = lin.fields()
+    for code, dst, a, b, c in zip(*(f[k].tolist() for k in (
+            "opcode", "dst", "a", "b", "c"))):
+        x = fetch(a)
+        y = bank[b] if code in SCALAR_B else fetch(b)
+        if code in (ADD, ADDS):
+            v = gf.add(x, y)
+        elif code == SUB:
+            v = gf.sub(x, y)
+        elif code == SUBS:
+            v = gf.sub(y.expand_as(x), x)
+        elif code in (MUL, MULS):
+            v = gf.mul(x, y)
+        else:                                   # MULADD, MULADDS
+            v = gf.add(gf.mul(x, y), fetch(c))
+        slots[dst] = v
+    if not lin.out_operands.size:
+        return x_in.new_zeros((0, C))
+    return torch.stack([fetch(int(o)) for o in lin.out_operands.tolist()])
 
 
 # -- carrying a program across, and storing it ------------------------------

@@ -13,9 +13,10 @@ order.  Its scalar inputs are the public-inputs hash (4), the betas, the
 gammas and the alphas.  Its outputs are the num_challenges quotient rows.
 
 The commitments' leaves are in bit-reversed order, so each chunk of lanes
-gathers its columns through ``idx_nat``/``idx_next`` straight into the
-first rows of the register file of kernel K6, which then runs the program
-in place; the values go through ``coset_intt`` (K3) to coefficients.
+gathers its columns through ``idx_nat``/``idx_next``, only the rows that
+the program's linear form reads (``linearize(program).input_rows``), and
+kernel K6 runs the program on them; the values go through ``coset_intt``
+(K3) to coefficients.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from ..field import goldilocks as gl
 from ..field.convert import from_u64
 from ..ops import ntt
 from ..utils.bits import bit_reverse_indices
+from .constraint_program import linearize
 from .constraint_program_cuda import run_program_cuda
 
 
@@ -101,25 +103,38 @@ class DeviceQuotient:
         self.dom = domain_columns(shape, self.device)
 
     def gather(self, lanes, wires_batch, zspp_batch,
-               out: torch.Tensor | None = None) -> torch.Tensor:
-        """The program's (n_inputs, len(lanes)) inputs at natural-order
-        `lanes` (a slice or an index tensor), written into `out` if given
-        (e.g. the first rows of a register file)."""
+               out: torch.Tensor | None = None,
+               rows: np.ndarray | None = None) -> torch.Tensor:
+        """The program's inputs at natural-order `lanes` (a slice or an
+        index tensor): all (n_inputs, C) of them, or the sorted input
+        indices `rows` only, written into `out` if given."""
         inat, inext = self.idx_nat[lanes], self.idx_next[lanes]
         C = inat.shape[0]
+        rows = (np.arange(self.program.n_inputs) if rows is None
+                else np.asarray(rows, dtype=np.int64))
         if out is None:
-            out = torch.empty((self.program.n_inputs, C), dtype=torch.int64,
+            out = torch.empty((len(rows), C), dtype=torch.int64,
                               device=self.device)
         n_pre, n_wires, n_zspp, nch = self.n_cols
         z_leaves = zspp_batch.leaves_dev
-        row = 0
+        dom = self.dom[:, lanes]
+        start = pos = 0
         for src, n, idx in ((self.cs_leaves, n_pre, inat),
                             (wires_batch.leaves_dev, n_wires, inat),
                             (z_leaves, n_zspp, inat),
-                            (z_leaves, nch, inext)):
-            torch.index_select(src[:n], 1, idx, out=out[row:row + n])
-            row += n
-        out[row:row + 3] = self.dom[:, lanes]
+                            (z_leaves, nch, inext), (dom, 3, None)):
+            local = rows[(rows >= start) & (rows < start + n)] - start
+            # one index_select per run of consecutive rows
+            for run in np.split(local, np.flatnonzero(np.diff(local) != 1)
+                                + 1) if local.size else ():
+                r0, k = int(run[0]), len(run)
+                if idx is None:
+                    out[pos:pos + k] = src[r0:r0 + k]
+                else:
+                    torch.index_select(src[r0:r0 + k], 1, idx,
+                                       out=out[pos:pos + k])
+                pos += k
+            start += n
         return out
 
     def scalar_bank(self, public_inputs_hash, betas, gammas,
@@ -139,13 +154,13 @@ class DeviceQuotient:
             raise ValueError(f"chunk {C} does not divide {self.lde_size}")
         vals = torch.empty((prog.n_outputs, self.lde_size), dtype=torch.int64,
                            device=self.device)
-        regs = torch.empty((prog.n_regs, C), dtype=torch.int64,
-                           device=self.device)
+        rows = linearize(prog).input_rows
+        inputs = torch.empty((len(rows), C), dtype=torch.int64,
+                             device=self.device)
         for c in range(self.lde_size // C):
             lanes = slice(c * C, (c + 1) * C)
-            self.gather(lanes, wires_batch, zspp_batch,
-                        out=regs[:prog.n_inputs])
-            vals[:, lanes] = run_program_cuda(prog, regs, bank)
+            self.gather(lanes, wires_batch, zspp_batch, out=inputs, rows=rows)
+            vals[:, lanes] = run_program_cuda(prog, inputs, bank)
         return vals
 
     def compute(self, wires_batch, zspp_batch, public_inputs_hash, betas,

@@ -90,7 +90,7 @@ def test_wrappers_launch_with_declared_signatures(monkeypatch):
               {"B": 3, "log_n1": 4, "n2": 8, "pre": None},
               {"B": 3, "rate_bits": 3, "log_n1": 4, "n2": 8},
               {"B": 3, "q": 2, "log_n1": 4, "n2": 8},
-              {"n_waves": 396, "W": 16, "n_out": 2, "C": 64}]
+              {"n_ops": 4045, "n_out": 2, "n_slots": 211, "C": 64}]
     for (wrapper, args, kwargs, out_shape), shape in zip(cases, shapes):
         before = wrapper.launches
         out = wrapper(*args, **kwargs)
@@ -101,11 +101,12 @@ def test_wrappers_launch_with_declared_signatures(monkeypatch):
         assert {k: named[k] for k in shape} == shape, name
         assert named["out"] == out.data_ptr()
     assert [c[0] for c in calls] == list(kernels.SIGNATURES)
-    # the quotient gathers into a register file that K6 then runs in place
+    # the quotient gathers only the input rows the program reads, and K6
+    # reads them where they lie
     before = cpc.run_program_cuda.launches
-    regs = z((prog.n_regs, 64), dtype=i64)
-    cpc.run_program_cuda(prog, regs, z((857,), dtype=i64))
-    assert kernels.named_args(*calls[-1])["regs"] == regs.data_ptr()
+    rows = z((len(cp.linearize(prog).input_rows), 64), dtype=i64)
+    cpc.run_program_cuda(prog, rows, z((857,), dtype=i64))
+    assert kernels.named_args(*calls[-1])["in"] == rows.data_ptr()
     assert cpc.run_program_cuda.launches == before + 1
 
 

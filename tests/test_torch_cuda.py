@@ -41,16 +41,24 @@ def _equal(a, b):
     np.testing.assert_array_equal(to_u64(a), to_u64(b))
 
 
-@pytest.mark.parametrize("L", [5, 12, 234])
+@pytest.mark.parametrize("L", [1, 5, 7, 8, 9, 12, 234, 2481])
 def test_hash_leaves_kernel(dev, L):
+    """K1 on the fast schedule, partial last absorb blocks included; the
+    first 256 leaves hold boundary values only."""
     leaves = _rand((L, 1024), L, dev)
+    leaves[:, :256] = from_u64(BOUNDARY[np.random.default_rng(L).integers(
+        0, 5, size=(L, 256))], dev)
     before = pc.hash_leaves_cols_cuda.launches
-    _equal(pc.hash_leaves_cols_cuda(leaves), pos.hash_leaves_cols(leaves))
+    want = pos.hash_leaves_cols(leaves)
+    _equal(pc.hash_leaves_cols_cuda(leaves), want)
     assert pc.hash_leaves_cols_cuda.launches == before + 1
+    _equal(pos.hash_leaves_cols(leaves[:, :64].cpu()), want[:, :64].cpu())
 
 
 def test_compress_level_kernel(dev):
     level = _rand((4, 2048), 1, dev)
+    level[:, :512] = from_u64(BOUNDARY[np.random.default_rng(1).integers(
+        0, 5, size=(4, 512))], dev)
     _equal(pc.compress_level_cuda(level), pc.compress_level(level))
 
 
@@ -118,17 +126,26 @@ def test_constraint_program_kernel_random(dev, seed, W):
 
 
 def test_constraint_program_kernel_flagship(dev):
+    """K6 on the flagship program's linear form: full inputs and the rows
+    it reads only; a ragged lane count; boundary values in the first 1024
+    lanes."""
     prog, _ = cp.load(FLAGSHIP_NPZ)
+    lin = cp.linearize(prog)
     rng = np.random.default_rng(11)
-    inputs = _rand((prog.n_inputs, 4096), 11, dev)
+    inputs = _rand((prog.n_inputs, 4000), 11, dev)
+    inputs[:, :1024] = from_u64(BOUNDARY[rng.integers(
+        0, 5, size=(prog.n_inputs, 1024))], dev)
     bank = from_u64(prog.scalar_bank(
         [int(x) for x in rng.integers(0, P, size=prog.n_scalar_inputs,
                                       dtype=np.uint64)]), dev)
     want = prog.run_plain(inputs, bank)
     _equal(cpc.run_program_cuda(prog, inputs, bank), want)
-    regs = torch.empty((prog.n_regs, 4096), dtype=torch.int64, device=dev)
-    regs[:prog.n_inputs] = inputs
-    _equal(cpc.run_program_cuda(prog, regs, bank), want)
+    rows = torch.from_numpy(lin.input_rows.astype(np.int64)).to(dev)
+    _equal(cpc.run_program_cuda(prog, inputs[rows].contiguous(), bank), want)
+    _equal(cp.run_plain_linear(lin, inputs, bank), want)
+    with pytest.raises(ValueError):        # a register file is not taken
+        cpc.run_program_cuda(prog, torch.zeros(
+            (prog.n_regs, 64), dtype=torch.int64, device=dev), bank)
 
 
 def test_quotient_round_on_card_matches_cpu(dev):
@@ -168,7 +185,7 @@ def test_kernels_reject_bad_operands(dev):
     with pytest.raises(TypeError):
         pc.hash_leaves_cols_cuda(a[0].to(torch.int32))
     prog = cp.random_program(np.random.default_rng(0))
-    with pytest.raises(ValueError):        # neither n_inputs nor n_regs rows
+    with pytest.raises(ValueError):        # neither n_inputs nor n_read rows
         cpc.run_program_cuda(prog, _rand((prog.n_inputs + 1, 64), 7, dev),
                              _rand((4,), 8, dev))
     with pytest.raises(ValueError):        # bank on another device

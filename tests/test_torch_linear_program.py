@@ -1,0 +1,159 @@
+"""The linear form of a constraint program (plonky2_tpu_torch/plonk/
+constraint_program.py:linearize), which kernel K6 runs, against the wave
+program: ``run_plain_linear(linearize(prog))`` equals the port's
+``run_plain`` and the JAX package's ``ConstraintProgram.run_numpy`` on the
+flagship program, the fibonacci circuit's quotient program and random
+programs that reuse registers inside a wave.  Exact equality."""
+import os
+
+import numpy as np
+import pytest
+
+from plonky2_tpu.plonk.quotient_program import build_quotient_program
+from plonky2_tpu_torch.field.convert import from_u64, to_u64
+from plonky2_tpu_torch.fri.oracle import PolynomialBatch
+from plonky2_tpu_torch.plonk import constraint_program as cp
+from plonky2_tpu_torch.plonk.circuit_shape import CircuitShape
+from plonky2_tpu_torch.plonk.constraint_program_cuda import run_program_cuda
+from plonky2_tpu_torch.plonk.quotient_program import DeviceQuotient
+from tests.test_torch_partial_products import fib_round
+from tests.test_torch_quotient import (BOUNDARY, FLAGSHIP_NPZ, P,
+                                       _to_jax_program, random_program)
+
+
+def _flagship():
+    return cp.load(FLAGSHIP_NPZ)[0]
+
+
+def _fib():
+    return cp.program_from_arrays(build_quotient_program(
+        fib_round().data.common))
+
+
+def _port_random(W):
+    prog = cp.random_program(np.random.default_rng(W), wave_width=W,
+                             n_regs=3 * W)
+    assert cp.in_wave_reuse(prog)
+    return prog
+
+
+def _jax_random(seed, W):
+    prog = cp.program_from_arrays(random_program(seed, wave_width=W))
+    assert cp.in_wave_reuse(prog)
+    return prog
+
+
+PROGRAMS = {
+    "flagship": (_flagship, 192),
+    "fibonacci": (_fib, 128),
+    "random W=8": (lambda: _port_random(8), 64),
+    "random W=16": (lambda: _port_random(16), 64),
+    "random W=32": (lambda: _port_random(32), 64),
+    "jax random W=16": (lambda: _jax_random(0, 16), 64),
+}
+
+
+@pytest.mark.parametrize("name", list(PROGRAMS))
+def test_linear_form_matches_wave_program_and_jax(name):
+    make, lanes = PROGRAMS[name]
+    prog = make()
+    lin = cp.linearize(prog)
+    rng = np.random.default_rng(len(name))
+    inputs = rng.integers(0, P, size=(prog.n_inputs, lanes), dtype=np.uint64)
+    inputs[:, :lanes // 2] = BOUNDARY[rng.integers(
+        0, 5, size=(prog.n_inputs, lanes // 2))]
+    scal = [int(x) for x in rng.integers(0, P, size=prog.n_scalar_inputs,
+                                         dtype=np.uint64)]
+    bank = from_u64(prog.scalar_bank(scal))
+    want = _to_jax_program(prog).run_numpy(inputs, scal)
+    t_in = from_u64(inputs)
+    np.testing.assert_array_equal(to_u64(prog.run_plain(t_in, bank)), want)
+    np.testing.assert_array_equal(
+        to_u64(cp.run_plain_linear(lin, t_in, bank)), want)
+    # the rows it reads are enough, for the plain linear form and for the
+    # K6 wrapper on a CPU tensor
+    rows = from_u64(inputs[lin.input_rows])
+    np.testing.assert_array_equal(
+        to_u64(cp.run_plain_linear(lin, rows, bank)), want)
+    np.testing.assert_array_equal(to_u64(run_program_cuda(prog, rows, bank)),
+                                  want)
+
+
+def _slot_reads(lin):
+    """Per op, the slots it reads (keep stores excluded)."""
+    f = lin.fields()
+    out = []
+    for code, a, b, c in zip(f["opcode"], f["a"], f["b"], f["c"]):
+        ops = [a] + ([] if code in cp.SCALAR_B else [b]) + (
+            [c] if code in (cp.MULADD, cp.MULADDS) else [])
+        out.append([int(x) for x in ops if not x & cp.OPERAND_INPUT])
+    return out
+
+
+@pytest.mark.parametrize("name", ["flagship", "random W=16", "fibonacci"])
+def test_every_written_slot_is_read(name):
+    """No op writes a dump slot: each op's result (and each kept input) is
+    read by a later op before its slot is written again, or is an
+    output."""
+    lin = cp.linearize(PROGRAMS[name][0]())
+    f = lin.fields()
+    reads = _slot_reads(lin)
+    outs = {int(o) for o in lin.out_operands if not o & cp.OPERAND_INPUT}
+    pending = {}                 # slot -> written and not read yet
+    for k in range(lin.n_ops):
+        for s in reads[k]:
+            pending.pop(s, None)
+        kept = {int(lin.input_slot[x & cp.OPERAND_INDEX])
+                for field in ("a", "b", "c")
+                for x in [int(f[field][k])]
+                if x & cp.OPERAND_KEEP and x & cp.OPERAND_INPUT and not
+                (field == "b" and f["opcode"][k] in cp.SCALAR_B)}
+        for s in kept:          # an input read twice by one op: one slot
+            assert s not in pending, f"op {k} overwrites unread slot {s}"
+            pending[s] = k
+        d = int(f["dst"][k])
+        assert d not in pending, f"op {k} overwrites unread slot {d}"
+        pending[d] = k
+    assert set(pending) <= outs
+
+
+def test_flagship_linear_form():
+    """The flagship program's 4,045 real ops, in at most 230 slots (the
+    greedy schedule gives 211), reading 244 of its 343 inputs."""
+    prog = _flagship()
+    lin = cp.linearize(prog)
+    assert lin.n_ops == prog.n_ops == 4045
+    assert lin.n_slots <= 230
+    assert 8 * lin.n_slots * 128 <= 232448       # 128 lanes a block fit
+    assert prog.n_inputs == 343 and lin.n_read == 244
+    f = lin.fields()
+    assert sorted(np.bincount(f["opcode"], minlength=8).tolist()) == sorted(
+        prog.real_op_counts().values())
+    assert int(f["dst"].max()) < lin.n_slots
+    assert cp.linearize(prog) is lin                    # cached
+    again = cp.linearize(_flagship())                   # deterministic
+    np.testing.assert_array_equal(again.ops, lin.ops)
+    np.testing.assert_array_equal(again.input_slot, lin.input_slot)
+
+
+def test_quotient_gathers_only_read_rows():
+    """DeviceQuotient.gather of the linear form's rows equals those rows
+    of the full input matrix (fibonacci circuit, CPU)."""
+    r = fib_round()
+    common, prover_only = r.data.common, r.data.prover_only
+    shape = CircuitShape.from_common(common)
+    prog = _fib()
+    batch = lambda v: PolynomialBatch.from_values(  # noqa: E731
+        v, shape.rate_bits, False, shape.cap_height, device="cpu")
+    cs = PolynomialBatch.from_coeffs(
+        prover_only.constants_sigmas_commitment.polynomials, shape.rate_bits,
+        False, shape.cap_height, device="cpu")
+    wires = batch(r.witness)
+    zspp = batch(r.zspp)
+    dq = DeviceQuotient(shape, prog, cs, device="cpu")
+    full = dq.gather(slice(None), wires, zspp)
+    rows = cp.linearize(prog).input_rows
+    for sub in (rows, rows[::2], np.array([0, prog.n_inputs - 1])):
+        np.testing.assert_array_equal(
+            to_u64(dq.gather(slice(3, 40), wires, zspp, rows=sub)),
+            to_u64(full[:, 3:40][sub]))

@@ -15,6 +15,7 @@ from plonky2_tpu.field import goldilocks as jgl
 from plonky2_tpu.hash import merkle_jax as mkj
 from plonky2_tpu.hash import poseidon as jpos
 from plonky2_tpu.hash import poseidon_jax as pj
+from plonky2_tpu.hash import poseidon_wires_jax as pwj
 from plonky2_tpu.hash.hashers import POSEIDON_CONFIG
 from plonky2_tpu_torch.field import convert
 from plonky2_tpu_torch.hash import merkle_torch
@@ -58,6 +59,34 @@ def test_permutation_matches_poseidon_jax_and_oracle():
     got = convert.to_u64(tpos.poseidon_t(convert.from_u64(st)))
     np.testing.assert_array_equal(got, _from_jax(pj.poseidon_t(_jax_pair(st))))
     np.testing.assert_array_equal(got, jpos.poseidon(st.T).T)
+
+
+def test_fast_constants_copied_byte_for_byte():
+    here = os.path.dirname(jpos.__file__)
+    with open(os.path.join(here, "poseidon_fast_constants.npz"), "rb") as f:
+        want = f.read()
+    with open(tpos.FAST_CONSTANTS_PATH, "rb") as f:
+        assert f.read() == want
+
+
+BOUNDARY = np.array([0, 1, (1 << 32) - 1, 1 << 32, P - 1], dtype=np.uint64)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_poseidon_fast_t_matches_jax_and_poseidon_t(seed):
+    """The fast partial-round schedule (the one kernels K1 and K2 run)
+    against the JAX package's poseidon_fast_t and the port's naive
+    poseidon_t, on random states and states of boundary values."""
+    rng = np.random.default_rng(seed)
+    st = _rand((12, 96), 30 + seed)
+    st[:, :48] = BOUNDARY[rng.integers(0, 5, size=(12, 48))]
+    st[:, 48:53] = BOUNDARY[None, :]           # each value in every word
+    t = convert.from_u64(st)
+    got = convert.to_u64(tpos.poseidon_fast_t(t))
+    np.testing.assert_array_equal(
+        got, _from_jax(pwj.poseidon_fast_t(_jax_pair(st))))
+    np.testing.assert_array_equal(got, convert.to_u64(tpos.poseidon_t(t)))
+    assert tpos.permute_ints(st[:, 7]) == [int(x) for x in got[:, 7]]
 
 
 def test_scalar_permutation_matches_oracle():

@@ -151,12 +151,13 @@ def test_run_plain_matches_jax_on_random_programs(seed, wave_width):
     np.testing.assert_array_equal(jax_out, want)
     got = prog.run_plain(from_u64(inputs), from_u64(bank))
     np.testing.assert_array_equal(to_u64(got), want)
-    # the K6 wrapper takes the plain version for a CPU tensor, also when
-    # handed a whole register file
-    regs = torch.zeros((prog.n_regs, 256), dtype=torch.int64)
-    regs[:prog.n_inputs] = from_u64(inputs)
-    np.testing.assert_array_equal(
-        to_u64(run_program_cuda(prog, regs, from_u64(bank))), want)
+    # the K6 wrapper takes the plain version for a CPU tensor, handed all
+    # inputs or only the rows its linear form reads
+    x = from_u64(inputs)
+    rows = torch.from_numpy(cp.linearize(prog).input_rows.astype(np.int64))
+    for given in (x, x[rows]):
+        np.testing.assert_array_equal(
+            to_u64(run_program_cuda(prog, given, from_u64(bank))), want)
 
 
 def test_pallas_interpret_matches_run_plain():
