@@ -14,14 +14,16 @@ The main paths are two rounds of the flagship proof (the hash-tree circuit,
   polynomials' natural-order coset LDE (ops/ntt.py:lde_coset_ntt).
 
 The script builds the kernels from csrc/ with nvcc (one process per
-source, in parallel), holds each kernel against its plain PyTorch version on
+source, in parallel), holds each kernel, in each of its forms (K3 and K5
+down the columns and along the rows), against its plain PyTorch version on
 the card (exact equality: integer arithmetic, tolerance 0), runs each path
 at full width with its launch counts set to 0 just before and read just
 after, holds the full-width results against the plain versions on subsets,
-verifies the openings, and prints one JSON line with each kernel's
-launches, time and bound.  Every phase prints a flushed line before it
-starts and when it ends; any failure raises and exits non-zero.  The last
-line of standard output is the run's device summary.
+verifies the openings, and prints one JSON line with each TPU kernel's
+launches, time and bound, split by form and by path, and the commitment's
+Merkle levels (K2) launch by launch.  Every phase prints a flushed line
+before it starts and when it ends; any failure raises and exits non-zero.
+The last line of standard output is the run's device summary.
 
 It also traces one warm quotient round with torch.profiler and prints the
 device's busy and idle shares of it, and (phase 8) measures the card's
@@ -99,27 +101,41 @@ PERM_MULS = (8 * 12 * _SBOX_MULS + 11 * 11 * FIELD_MUL_MULS
              + 22 * (_SBOX_MULS + 22 * FIELD_MUL_MULS + 2))
 PERM_FP64_FMAS = 8 * 144 * 2
 
+# The TPU kernels, each one row of the kernels line: key -> (name, the
+# JAX function it replaces).
+TPU_KERNELS = {
+    "K1": ("K1 hash_leaves_cols", "plonky2_tpu/hash/poseidon_pallas.py:401"),
+    "K2": ("K2 compress_level", "plonky2_tpu/hash/poseidon_pallas.py:473"),
+    "K3": ("K3 ntt_cols", "plonky2_tpu/ops/ntt_pallas.py:95"),
+    "K4": ("K4 ntt_cols_zero_tail", "plonky2_tpu/ops/ntt_pallas.py:141"),
+    "K5": ("K5 ntt_cols_dif", "plonky2_tpu/ops/ntt_pallas.py:243"),
+    "K6": ("K6 constraint_program",
+           "plonky2_tpu/plonk/constraint_program.py:459"),
+}
+NTT_CU = "plonky2_tpu_torch/csrc/ntt.cu"
 KERNELS = {
-    # C entry -> (name, source, TPU kernel it replaces)
-    "plk_hash_leaves": ("K1 hash_leaves_cols", "plonky2_tpu_torch/csrc/poseidon.cu",
-                        "plonky2_tpu/hash/poseidon_pallas.py:401"),
-    "plk_compress_level": ("K2 compress_level", "plonky2_tpu_torch/csrc/poseidon.cu",
-                           "plonky2_tpu/hash/poseidon_pallas.py:473"),
-    "plk_ntt_cols_dit": ("K3 ntt_cols", "plonky2_tpu_torch/csrc/ntt.cu",
-                         "plonky2_tpu/ops/ntt_pallas.py:95"),
-    "plk_ntt_cols_zero_tail": ("K4 ntt_cols_zero_tail",
-                               "plonky2_tpu_torch/csrc/ntt.cu",
-                               "plonky2_tpu/ops/ntt_pallas.py:141"),
-    "plk_ntt_cols_dif": ("K5 ntt_cols_dif", "plonky2_tpu_torch/csrc/ntt.cu",
-                         "plonky2_tpu/ops/ntt_pallas.py:243"),
-    "plk_constraint_program": ("K6 constraint_program",
-                               "plonky2_tpu_torch/csrc/constraint_program.cu",
-                               "plonky2_tpu/plonk/constraint_program.py:459"),
+    # C entry -> (TPU kernel, form, source)
+    "plk_hash_leaves": ("K1", "hash_leaves_cols",
+                        "plonky2_tpu_torch/csrc/poseidon.cu"),
+    "plk_compress_level": ("K2", "compress_level",
+                           "plonky2_tpu_torch/csrc/poseidon.cu"),
+    "plk_ntt_cols_dit": ("K3", "ntt_cols", NTT_CU),
+    "plk_ntt_rows_dit": ("K3", "ntt_rows (stored transposed)", NTT_CU),
+    "plk_ntt_cols_zero_tail": ("K4", "ntt_cols_zero_tail", NTT_CU),
+    "plk_ntt_cols_dif": ("K5", "ntt_cols_dif", NTT_CU),
+    "plk_ntt_rows_dif": ("K5", "ntt_rows_dif (in place)", NTT_CU),
+    "plk_constraint_program": ("K6", "constraint_program",
+                               "plonky2_tpu_torch/csrc/constraint_program.cu"),
 }
 # the kernels each main path runs
 COMMIT_PATH = ("plk_hash_leaves", "plk_compress_level", "plk_ntt_cols_dit",
-               "plk_ntt_cols_dif")
+               "plk_ntt_rows_dit", "plk_ntt_cols_dif", "plk_ntt_rows_dif")
 QUOTIENT_PATH = tuple(KERNELS)
+
+
+def kernel_label(entry: str) -> str:
+    key, form, _ = KERNELS[entry]
+    return f"{key} {form}"
 
 
 def log(msg: str) -> None:
@@ -252,16 +268,28 @@ def launch_cost(name: str, args) -> tuple:
         nbytes = (8 * (lin.n_read + n_out) * C + 8 * lin.n_ops
                   + 4 * (lin.n_read + n_out) + 8 * a["bank_size"])
         return nbytes, n_mul * FIELD_MUL_MULS * C, 0
-    # column NTTs: K4's first rate_bits stages only copy rows
-    B, n2, log_n1 = a["B"], a["n2"], a["log_n1"]
+    B = a["B"]
+    post = a.get("post") is not None
+    if name.startswith("plk_ntt_rows"):
+        # size-n2 transforms of the B * n1 rows; K3's takes a post table
+        rows, n2 = B << a["log_n1"], 1 << a["log_n2"]
+        nbytes = 8 * (2 * rows * n2 + n2 + ((rows // B) * n2 if post else 0))
+        muls = rows * (n2 // 2) * a["log_n2"] + (rows * n2 if post else 0)
+        return nbytes, muls * FIELD_MUL_MULS, 0
+    pre = a["pre"] is not None
+    # column NTTs of n1 = 2^log_n1 rows from a prefix of q rows (K3: all
+    # n1).  With Q = q rounded up to a power of two and r = log2(n1 / Q), the
+    # first r stages of a zero tail scale n1 - Q prefix copies, then each
+    # of the 2^r segments is a Q-point DIF.
+    n2, log_n1 = a["n2"], a["log_n1"]
     n1 = 1 << log_n1
-    r = a.get("rate_bits", 0)
-    q = a.get("q", n1 >> r)
-    pre, post = a["pre"] is not None, a["post"] is not None
-    nbytes = 8 * (B * q * n2 + B * n1 * n2 + n1
+    q = a.get("q", n1 >> a.get("rate_bits", 0))
+    log_q = max(0, (q - 1).bit_length())
+    nbytes = 8 * (B * q * n2 + B * n1 * n2 + (1 << log_q)
+                  + (n1 if log_q < log_n1 else 0)
                   + (q * n2 if pre else 0) + (n1 * n2 if post else 0))
-    muls = B * (n1 // 2) * n2 * (log_n1 - r) + B * n2 * (
-        (q if pre else 0) + (n1 if post else 0))
+    muls = B * n2 * ((n1 // 2) * log_q + (n1 - (1 << log_q))
+                     + (q if pre else 0) + (n1 if post else 0))
     return nbytes, muls * FIELD_MUL_MULS, 0
 
 
@@ -312,18 +340,18 @@ def phase_kernels(dev) -> dict:
     rng = np.random.default_rng(SEED + 1)
     res = {}
 
-    def compare(entry, label, kernel_fn, plain_fn, timed=False):
+    def compare(entry, what, kernel_fn, plain_fn, timed=False):
         k_ms, got = cuda_ms(kernel_fn)
         p_ms, want = cuda_ms(plain_fn, warmup=False)
         err = max_abs_err(got, want)
-        log(f"  {KERNELS[entry][0]} {label}: max_abs_err {err} "
+        log(f"  {kernel_label(entry)} {what}: max_abs_err {err} "
             f"(kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms)")
-        check(err == 0, f"{entry} {label} differs from its plain version")
+        check(err == 0, f"{entry} {what} differs from its plain version")
         r = res.setdefault(entry, {"max_abs_err": 0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if timed:
             r.update(kernel_ms_at_plain_shape=k_ms, plain_ms=p_ms,
-                     plain_shape=label)
+                     plain_shape=what)
 
     for L, make in ((234, rand_field), (2481, rand_field),
                     (234, boundary_field), (9, boundary_field)):
@@ -338,44 +366,80 @@ def phase_kernels(dev) -> dict:
         compare("plk_compress_level", label,
                 lambda: pc.compress_level_cuda(level),
                 lambda: pc.compress_level(level), timed="digests" in label)
-    for n1 in (512, 1024, 2048):
-        a = rand_field(rng, (4, n1, 512), dev)
-        pre = rand_field(rng, (n1, 512), dev)
-        post = rand_field(rng, (n1, 512), dev)
+    # the column forms at the main paths' n1 (512 for the IFFT, 1024 for
+    # the LDE and the 2^21-point INTT) and a small one
+    for n1, n2 in ((512, 512), (1024, 2048), (2048, 512), (16, 8)):
+        a = rand_field(rng, (4, n1, n2), dev)
+        a[0] = boundary_field(rng, (n1, n2), dev)
+        pre = rand_field(rng, (n1, n2), dev)
+        post = rand_field(rng, (n1, n2), dev)
         for inverse in (False, True):
-            compare("plk_ntt_cols_dit", f"B=4 n1={n1} n2=512 inverse={inverse}",
+            compare("plk_ntt_cols_dit",
+                    f"B=4 n1={n1} n2={n2} inverse={inverse}",
                     lambda: nc.ntt_cols_cuda(a, inverse),
                     lambda: nc.ntt_cols(a, inverse),
                     timed=n1 == 512 and not inverse)
-        compare("plk_ntt_cols_dit", f"B=4 n1={n1} n2=512 pre+post",
+        compare("plk_ntt_cols_dit", f"B=4 n1={n1} n2={n2} pre+post",
                 lambda: nc.ntt_cols_cuda(a, True, pre, post),
                 lambda: nc.ntt_cols(a, True, pre, post))
-    for n1, tail in ((1024, 896), (1024, 0), (2048, 0)):
-        q = n1 - tail
-        a = rand_field(rng, (4, q, 512), dev)
-        pre = rand_field(rng, (q, 512), dev)
-        post = rand_field(rng, (n1, 512), dev)
-        compare("plk_ntt_cols_dif", f"B=4 n1={n1} tail={tail} n2=512",
+    # K5 with the LDE's tail of 896 rows at the main path's n2, without a
+    # tail, with a ragged prefix (q not a power of two) and a small n2
+    for q, tail, n2 in ((128, 896, 2048), (128, 896, 512), (1024, 0, 512),
+                        (2048, 0, 64), (100, 924, 64), (3, 13, 8)):
+        n1 = q + tail
+        a = rand_field(rng, (4, q, n2), dev)
+        a[0] = boundary_field(rng, (q, n2), dev)
+        pre = rand_field(rng, (q, n2), dev)
+        post = rand_field(rng, (n1, n2), dev)
+        what = f"B=4 n1={n1} tail={tail} n2={n2}"
+        compare("plk_ntt_cols_dif", what,
                 lambda: nc.ntt_cols_dif_cuda(a, tail),
-                lambda: nc.ntt_cols_dif(a, tail), timed=n1 == 1024 and tail)
-        compare("plk_ntt_cols_dif", f"B=4 n1={n1} tail={tail} n2=512 pre+post",
+                lambda: nc.ntt_cols_dif(a, tail),
+                timed=(q, tail, n2) == (128, 896, 512))
+        compare("plk_ntt_cols_dif", what + " pre+post",
                 lambda: nc.ntt_cols_dif_cuda(a, tail, pre=pre, post=post),
                 lambda: nc.ntt_cols_dif(a, tail, pre=pre, post=post))
-    for q, r, n2, boundary in ((128, 3, 512, False), (128, 3, 512, True),
-                               (1, 3, 512, False), (1024, 1, 64, False),
-                               (512, 0, 64, False)):
+    for q, r, n2, boundary in ((128, 3, 2048, False), (128, 3, 512, False),
+                               (128, 3, 512, True), (1, 3, 512, False),
+                               (1024, 1, 64, False), (512, 0, 64, False),
+                               (2, 2, 8, True)):
         make = boundary_field if boundary else rand_field
         a = make(rng, (4, q, n2), dev)
         pre = rand_field(rng, (q, n2), dev)
         post = rand_field(rng, (q << r, n2), dev)
-        label = f"B=4 q={q} r={r} n2={n2}" + (" boundary" if boundary else "")
-        compare("plk_ntt_cols_zero_tail", label,
+        what = f"B=4 q={q} r={r} n2={n2}" + (" boundary" if boundary else "")
+        compare("plk_ntt_cols_zero_tail", what,
                 lambda: nc.ntt_cols_zero_tail_cuda(a, r),
                 lambda: nc.ntt_cols_zero_tail(a, r),
-                timed=q == 128 and not boundary)
-        compare("plk_ntt_cols_zero_tail", label + " pre+post",
+                timed=(q, n2) == (128, 512) and not boundary)
+        compare("plk_ntt_cols_zero_tail", what + " pre+post",
                 lambda: nc.ntt_cols_zero_tail_cuda(a, r, pre=pre, post=post),
                 lambda: nc.ntt_cols_zero_tail(a, r, pre=pre, post=post))
+    # the row forms at the main paths' shapes (IFFT pass 2: n1 = n2 = 512;
+    # LDE and INTT pass 2: n1 = 1024, n2 = 2048) and small, ragged ones;
+    # K5's runs in place on a copy of the input
+    for B, n1, n2 in ((4, 512, 512), (4, 1024, 2048), (3, 2048, 1024),
+                      (2, 16, 8), (3, 2, 64), (2, 1, 8)):
+        a = rand_field(rng, (B, n1, n2), dev)
+        a[0] = boundary_field(rng, (n1, n2), dev)
+        post = rand_field(rng, (n2, n1), dev)
+        what = f"B={B} n1={n1} n2={n2}"
+        for inverse in (False, True):
+            compare("plk_ntt_rows_dit", what + f" inverse={inverse}",
+                    lambda: nc.ntt_rows_cuda(a, inverse),
+                    lambda: nc.ntt_rows(a, inverse),
+                    timed=(n1, n2) == (512, 512) and not inverse)
+        compare("plk_ntt_rows_dit", what + " post",
+                lambda: nc.ntt_rows_cuda(a, True, post),
+                lambda: nc.ntt_rows(a, True, post))
+
+        def in_place():
+            x = a.clone()
+            check(nc.ntt_rows_dif_cuda(x) is x, "the row DIF returned "
+                  "another tensor")
+            return x
+        compare("plk_ntt_rows_dif", what + " in place", in_place,
+                lambda: nc.ntt_rows_dif(a), timed=(n1, n2) == (1024, 2048))
 
     prog, _ = flagship_program()
     draw = lambda k: [int(x) for x in rng.integers(  # noqa: E731
@@ -408,8 +472,10 @@ def wrappers() -> dict:
     return {"plk_hash_leaves": pc.hash_leaves_cols_cuda,
             "plk_compress_level": pc.compress_level_cuda,
             "plk_ntt_cols_dit": nc.ntt_cols_cuda,
+            "plk_ntt_rows_dit": nc.ntt_rows_cuda,
             "plk_ntt_cols_zero_tail": nc.ntt_cols_zero_tail_cuda,
             "plk_ntt_cols_dif": nc.ntt_cols_dif_cuda,
+            "plk_ntt_rows_dif": nc.ntt_rows_dif_cuda,
             "plk_constraint_program": cpc.run_program_cuda}
 
 
@@ -456,7 +522,7 @@ def timed_path(run, path, label, keep=lambda out: None):
     kernel_ms = {k: float(np.median([r[k] for r in per_kernel]))
                  for k in per_kernel[0]}
     for k, ms in kernel_ms.items():
-        log(f"  {KERNELS[k][0]}: {ms:.3f} ms over {launches[k]} launches "
+        log(f"  {kernel_label(k)}: {ms:.3f} ms over {launches[k]} launches "
             f"(median of warm runs; {100 * ms / 1e3 / np.median(warm_s):.1f}% "
             "of the warm wall)")
     cost = {}
@@ -464,8 +530,35 @@ def timed_path(run, path, label, keep=lambda out: None):
         c = cost.setdefault(name, [0, 0, 0])
         for j, x in enumerate(launch_cost(name, args)):
             c[j] += x
+    last_run = [(name, args, s.elapsed_time(e)) for name, args, s, e in recs]
     return out, {"cold_s": cold_s, "warm_s": warm_s, "launches": launches,
-                 "kernel_ms": kernel_ms, "cost": cost, "peak_bytes": peak}
+                 "kernel_ms": kernel_ms, "cost": cost, "peak_bytes": peak,
+                 "last_run": last_run}
+
+
+def log_merkle_levels(res) -> dict:
+    """K2 launch by launch in the last warm run, beside the time its
+    permutations would take at the rate K1 reached in the same run (K1 and
+    K2 share the permutation): what is left is K2's own, the launches and
+    the small levels that cannot fill the card."""
+    from plonky2_tpu_torch.kernels import named_args
+    k1_perms = sum(launch_cost(n, a)[1] for n, a, _ in res["last_run"]
+                   if n == "plk_hash_leaves") / PERM_MULS
+    k1_ms = sum(ms for n, _, ms in res["last_run"] if n == "plk_hash_leaves")
+    ns_per_perm = k1_ms * 1e6 / k1_perms
+    levels = [(named_args(n, a)["m"], ms) for n, a, ms in res["last_run"]
+              if n == "plk_compress_level"]
+    total = sum(ms for _, ms in levels)
+    perm_ms = sum(m for m, _ in levels) * ns_per_perm / 1e6
+    for m, ms in levels:
+        log(f"  K2 level of {m} parents: {ms:.4f} ms (its permutations at "
+            f"K1's rate: {m * ns_per_perm / 1e6:.4f} ms)")
+    log(f"  K2: {len(levels)} launches, {total:.3f} ms; permutations at K1's "
+        f"{ns_per_perm:.3f} ns each: {perm_ms:.3f} ms; K2's own: "
+        f"{total - perm_ms:.3f} ms")
+    return {"launches": len(levels), "ms": total, "perm_ms": perm_ms,
+            "ns_per_perm": ns_per_perm,
+            "levels": [[m, ms] for m, ms in levels]}
 
 
 def phase_full_width(dev, rng):
@@ -481,6 +574,7 @@ def phase_full_width(dev, rng):
                                            CAP_HEIGHT, device=dev)
 
     batch, res = timed_path(run, COMMIT_PATH, "commit path")
+    res["merkle_levels"] = log_merkle_levels(res)
     check_full_width(batch, values, rng)
     res.update(batch=batch, values=values)
     return res
@@ -843,29 +937,52 @@ def phase_probes(dev) -> dict:
 
 
 def kernels_line(kern, paths, smi) -> dict:
-    """Each kernel's numbers summed over the main paths, with the split."""
-    out = []
-    for entry, (name, source, replaces) in KERNELS.items():
-        nbytes, muls, fmas = (sum(p["cost"].get(entry, (0, 0, 0))[j]
-                                  for p in paths.values()) for j in range(3))
+    """One row per TPU kernel: its forms' numbers summed over the main
+    paths, with the split by form and by path."""
+    def bound(nbytes, muls, fmas):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = max(muls / INT32_MULS_PER_S, fmas / FP64_FMAS_PER_S) * 1e3
-        launches = {k: p["launches"][entry] for k, p in paths.items()}
-        ms = {k: p["kernel_ms"].get(entry, 0.0) for k, p in paths.items()}
-        check(sum(launches.values()) > 0, f"{entry} was never launched")
-        k = kern[entry]
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+            "operations"
+
+    out = []
+    for key, (name, replaces) in TPU_KERNELS.items():
+        entries = [e for e, v in KERNELS.items() if v[0] == key]
+        cost = [0, 0, 0]
+        forms, launches, ms = [], {}, {}
+        for entry in entries:
+            c = [sum(p["cost"].get(entry, (0, 0, 0))[j]
+                     for p in paths.values()) for j in range(3)]
+            f_launches = {k: p["launches"][entry] for k, p in paths.items()}
+            f_ms = {k: p["kernel_ms"].get(entry, 0.0)
+                    for k, p in paths.items()}
+            check(sum(f_launches.values()) > 0, f"{entry} was never launched")
+            check(entry in kern, f"{entry} was not held against its plain "
+                  "version")
+            for k in paths:
+                launches[k] = launches.get(k, 0) + f_launches[k]
+                ms[k] = ms.get(k, 0.0) + f_ms[k]
+            cost = [x + y for x, y in zip(cost, c)]
+            f_bound, f_by = bound(*c)
+            forms.append({"entry": entry, "form": KERNELS[entry][1],
+                          "launches_by_path": f_launches,
+                          "ms_by_path": f_ms, "ms": sum(f_ms.values()),
+                          "bound_ms": f_bound, "bound_by": f_by,
+                          "max_abs_err": kern[entry]["max_abs_err"]})
+        timed = next(kern[e] for e in entries if "plain_ms" in kern[e])
+        bound_ms, bound_by = bound(*cost)
         out.append({
-            "name": name, "route": "cuda", "source": source,
+            "name": name, "route": "cuda", "source": KERNELS[entries[0]][2],
             "replaces": replaces, "launches": sum(launches.values()),
-            "max_abs_err": k["max_abs_err"], "ms": sum(ms.values()),
-            "plain_ms": k["plain_ms"], "plain_shape": k["plain_shape"],
-            "kernel_ms_at_plain_shape": k["kernel_ms_at_plain_shape"],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_bytes": nbytes, "bound_int32_muls": muls,
-            "bound_fp64_fmas": fmas,
+            "max_abs_err": max(f["max_abs_err"] for f in forms),
+            "ms": sum(ms.values()),
+            "plain_ms": timed["plain_ms"], "plain_shape": timed["plain_shape"],
+            "kernel_ms_at_plain_shape": timed["kernel_ms_at_plain_shape"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": cost[0], "bound_int32_muls": cost[1],
+            "bound_fp64_fmas": cost[2],
             "library_ms": None, "launches_by_path": launches,
-            "ms_by_path": ms})
+            "ms_by_path": ms, "forms": forms})
     return {"kernels": out, "card": smi}
 
 
@@ -893,6 +1010,10 @@ def main() -> int:
         quot = phase_quotient(dev, rng, full)
     with phase("7 kernels line"):
         line = kernels_line(kern, {"commit": full, "quotient": quot}, smi)
+        line["paths"] = {k: {f: p[f] for f in ("cold_s", "warm_s",
+                                               "peak_bytes")}
+                         for k, p in (("commit", full), ("quotient", quot))}
+        line["paths"]["commit"]["merkle_levels"] = full["merkle_levels"]
     with phase("8 int32 multiply rate and field-product SASS"):
         line["probes"] = phase_probes(dev)
     print(json.dumps(line), flush=True)

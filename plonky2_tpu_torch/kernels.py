@@ -45,14 +45,20 @@ SIGNATURES = {
                          ("log_n1", _I), ("n2", _LL), ("log_t", _I),
                          ("device", _I), ("stream", _P)),
     "plk_ntt_cols_zero_tail": (("in", _P), ("out", _P), ("twiddles", _P),
-                               ("pre", _P), ("post", _P), ("B", _LL),
-                               ("rate_bits", _I), ("log_n1", _I),
+                               ("factors", _P), ("pre", _P), ("post", _P),
+                               ("B", _LL), ("rate_bits", _I), ("log_n1", _I),
                                ("n2", _LL), ("log_t", _I), ("device", _I),
                                ("stream", _P)),
     "plk_ntt_cols_dif": (("in", _P), ("out", _P), ("twiddles", _P),
-                         ("pre", _P), ("post", _P), ("B", _LL), ("q", _LL),
-                         ("log_n1", _I), ("n2", _LL), ("log_t", _I),
-                         ("device", _I), ("stream", _P)),
+                         ("factors", _P), ("pre", _P), ("post", _P),
+                         ("B", _LL), ("q", _LL), ("log_n1", _I), ("n2", _LL),
+                         ("log_t", _I), ("device", _I), ("stream", _P)),
+    "plk_ntt_rows_dit": (("in", _P), ("out", _P), ("twiddles", _P),
+                         ("post", _P), ("B", _LL), ("log_n1", _I),
+                         ("log_n2", _I), ("device", _I), ("stream", _P)),
+    "plk_ntt_rows_dif": (("data", _P), ("twiddles", _P), ("B", _LL),
+                         ("log_n1", _I), ("log_n2", _I), ("device", _I),
+                         ("stream", _P)),
     "plk_constraint_program": (("in", _P), ("out", _P), ("ops", _P),
                                ("n_ops", _I), ("bank", _P),
                                ("bank_size", _I), ("input_slot", _P),

@@ -82,6 +82,9 @@ def test_wrappers_launch_with_declared_signatures(monkeypatch):
         (nc.ntt_cols_dif_cuda, (z((3, 2, 8), dtype=i64), 14),
          {"pre": z((2, 8), dtype=i64), "post": z((16, 8), dtype=i64)},
          (3, 16, 8)),
+        (nc.ntt_rows_cuda, (z((3, 16, 8), dtype=i64), True),
+         {"post": z((8, 16), dtype=i64)}, (3, 8, 16)),
+        (nc.ntt_rows_dif_cuda, (z((3, 16, 8), dtype=i64),), {}, (3, 16, 8)),
         (cpc.run_program_cuda, (prog, z((prog.n_inputs, 64), dtype=i64),
                                 z((len(prog.bank_sids),), dtype=i64)), {},
          (2, 64)),
@@ -90,6 +93,8 @@ def test_wrappers_launch_with_declared_signatures(monkeypatch):
               {"B": 3, "log_n1": 4, "n2": 8, "pre": None},
               {"B": 3, "rate_bits": 3, "log_n1": 4, "n2": 8},
               {"B": 3, "q": 2, "log_n1": 4, "n2": 8},
+              {"B": 3, "log_n1": 4, "log_n2": 3},
+              {"B": 3, "log_n1": 4, "log_n2": 3},
               {"n_ops": 4045, "n_out": 2, "n_slots": 211, "C": 64}]
     for (wrapper, args, kwargs, out_shape), shape in zip(cases, shapes):
         before = wrapper.launches
@@ -99,8 +104,17 @@ def test_wrappers_launch_with_declared_signatures(monkeypatch):
         name, cargs = calls[-1]
         named = kernels.named_args(name, cargs)
         assert {k: named[k] for k in shape} == shape, name
-        assert named["out"] == out.data_ptr()
+        # K5's row form runs in place on its one operand
+        assert named.get("out", named.get("data")) == out.data_ptr()
     assert [c[0] for c in calls] == list(kernels.SIGNATURES)
+    # the zero-tail forms get their factor table, K5 without a tail none
+    assert kernels.named_args(*calls[3])["factors"] is not None
+    assert kernels.named_args(*calls[4])["factors"] is not None
+    nc.ntt_cols_dif_cuda(z((3, 16, 8), dtype=i64))
+    assert kernels.named_args(*calls[-1])["factors"] is None
+    a = z((3, 16, 8), dtype=i64)
+    assert nc.ntt_rows_dif_cuda(a) is a
+    assert kernels.named_args(*calls[-1])["data"] == a.data_ptr()
     # the quotient gathers only the input rows the program reads, and K6
     # reads them where they lie
     before = cpc.run_program_cuda.launches
@@ -108,6 +122,35 @@ def test_wrappers_launch_with_declared_signatures(monkeypatch):
     cpc.run_program_cuda(prog, rows, z((857,), dtype=i64))
     assert kernels.named_args(*calls[-1])["in"] == rows.data_ptr()
     assert cpc.run_program_cuda.launches == before + 1
+
+
+def test_ntt_row_forms_raise_instead_of_falling_back(monkeypatch):
+    """A CUDA tensor that a row form cannot take raises before any launch:
+    no quiet plain version, no torch transpose."""
+    import pytest
+    import torch
+
+    from plonky2_tpu_torch import kernels
+    from plonky2_tpu_torch.ops import ntt_cuda as nc
+
+    def no_launch(name, *args):
+        raise AssertionError(f"{name} was launched")
+    monkeypatch.setattr(kernels, "on_cpu", lambda t: False)
+    monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    monkeypatch.setattr(kernels, "call", no_launch)
+    long_rows = torch.zeros((1, 2, 2 * nc.MAX_N2_ROWS), dtype=torch.int64)
+    for fn in (nc.ntt_rows_cuda, nc.ntt_rows_dif_cuda):
+        with pytest.raises(ValueError, match="at most"):
+            fn(long_rows)
+    a = torch.zeros((2, 8, 12), dtype=torch.int64)
+    for fn in (nc.ntt_rows_cuda, nc.ntt_rows_dif_cuda):
+        with pytest.raises(ValueError):        # not a power of two
+            fn(a)
+        with pytest.raises(ValueError):        # not contiguous
+            fn(a[:, :, :8])
+    with pytest.raises(ValueError):            # post of the wrong shape
+        nc.ntt_rows_cuda(a[:, :, :8].contiguous(),
+                         post=torch.zeros((4, 8), dtype=torch.int64))
 
 
 def test_signatures_match_csrc():

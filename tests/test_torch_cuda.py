@@ -62,7 +62,8 @@ def test_compress_level_kernel(dev):
     _equal(pc.compress_level_cuda(level), pc.compress_level(level))
 
 
-@pytest.mark.parametrize("n1,n2", [(16, 128), (512, 64), (2048, 8)])
+@pytest.mark.parametrize("n1,n2", [(16, 128), (512, 64), (2048, 8),
+                                   (8192, 4)])
 def test_ntt_cols_kernel(dev, n1, n2):
     a = _rand((2, n1, n2), n1, dev)
     post = _rand((n1, n2), 2, dev)
@@ -72,7 +73,8 @@ def test_ntt_cols_kernel(dev, n1, n2):
            nc.ntt_cols(a, post=post, pre=post))
 
 
-@pytest.mark.parametrize("q,tail", [(16, 0), (2, 14), (128, 896)])
+@pytest.mark.parametrize("q,tail", [(16, 0), (2, 14), (128, 896),
+                                    (100, 924), (3, 13)])
 def test_ntt_cols_dif_kernel(dev, q, tail):
     a = _rand((2, q, 64), q, dev)
     pre, post = _rand((q, 64), 3, dev), _rand((q + tail, 64), 4, dev)
@@ -82,6 +84,70 @@ def test_ntt_cols_dif_kernel(dev, q, tail):
 
 
 BOUNDARY = np.array([0, 1, (1 << 32) - 1, 1 << 32, P - 1], dtype=np.uint64)
+
+
+@pytest.mark.parametrize("B,n1,n2", [(2, 16, 8), (3, 2, 64), (2, 1, 8),
+                                     (2, 512, 512), (1, 1024, 2048),
+                                     (1, 4, 8192)])
+def test_ntt_rows_kernel(dev, B, n1, n2):
+    """K3's row form (stored transposed) against its plain version and the
+    column form on the transposed input; boundary values in the first
+    batch entry."""
+    a = _rand((B, n1, n2), n1 + n2, dev)
+    a[0] = from_u64(BOUNDARY[np.random.default_rng(n2).integers(
+        0, 5, size=(n1, n2))], dev)
+    post = _rand((n2, n1), 5, dev)
+    before = nc.ntt_rows_cuda.launches
+    for inverse in (False, True):
+        _equal(nc.ntt_rows_cuda(a, inverse), nc.ntt_rows(a, inverse))
+    _equal(nc.ntt_rows_cuda(a, True, post), nc.ntt_rows(a, True, post))
+    assert nc.ntt_rows_cuda.launches == before + 3
+    _equal(nc.ntt_rows_cuda(a), nc.ntt_cols_cuda(a.transpose(1, 2)
+                                                 .contiguous()))
+
+
+@pytest.mark.parametrize("B,n1,n2", [(2, 16, 8), (3, 2, 64),
+                                     (2, 1024, 2048), (1, 2, 8192)])
+def test_ntt_rows_dif_kernel_in_place(dev, B, n1, n2):
+    """K5's row form in place on its input."""
+    a = _rand((B, n1, n2), n1 * n2, dev)
+    a[0] = from_u64(BOUNDARY[np.random.default_rng(n1).integers(
+        0, 5, size=(n1, n2))], dev)
+    want = nc.ntt_rows_dif(a)
+    before = nc.ntt_rows_dif_cuda.launches
+    assert nc.ntt_rows_dif_cuda(a) is a
+    assert nc.ntt_rows_dif_cuda.launches == before + 1
+    _equal(a, want)
+
+
+def test_ntt_row_forms_refuse_what_they_cannot_take(dev):
+    """No fallback: a shape a row form cannot take raises."""
+    long_rows = torch.zeros((1, 2, 2 * nc.MAX_N2_ROWS), dtype=torch.int64,
+                            device=dev)
+    for fn in (nc.ntt_rows_cuda, nc.ntt_rows_dif_cuda):
+        with pytest.raises(ValueError, match="at most"):
+            fn(long_rows)
+        with pytest.raises(ValueError):
+            fn(_rand((2, 8, 8), 8, dev).transpose(1, 2))   # not contiguous
+
+
+@pytest.mark.parametrize("log_m,r,B", [(9, 1, 1), (11, 2, 3), (13, 3, 1),
+                                       (13, 1, 3)])
+def test_four_step_schedules_on_card_match_cpu(dev, log_m, r, B):
+    """The transpose-free schedules on the card against the CPU (plain)."""
+    from plonky2_tpu_torch.parallel import four_step
+    m = 1 << log_m
+    v = _rand((B, m), log_m, "cpu")
+    q = m >> r
+    for fn in (lambda x: four_step.batched_four_step_ntt(x),
+               lambda x: four_step.batched_four_step_ntt(x, True),
+               lambda x: four_step.batched_four_step_zero_tail_ntt(
+                   x[:, :q].contiguous(), r),
+               lambda x: four_step.batched_four_step_zero_tail_bitrev(
+                   x[:, :q].contiguous(), r)):
+        _equal(fn(v.to(dev)), fn(v))
+
+
 FLAGSHIP_NPZ = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "plonky2_tpu_torch", "plonk", "programs",
     "hash_tree_wide_ecc.npz")

@@ -99,6 +99,90 @@ def test_four_step_zero_tail_matches_sharded_ntt(q, r):
     np.testing.assert_array_equal(_u(tntt.lde_coset_ntt(_t(v), r)), want_lde)
 
 
+@pytest.mark.parametrize("shape", [(8, 16), (2, 16, 8), (3, 4, 32),
+                                   (2, 1, 8)])
+@pytest.mark.parametrize("form", ["dit", "dif"])
+def test_row_forms_equal_column_forms_on_transposed_input(shape, form):
+    """The plain row forms against the plain column forms on the transposed
+    input: K3's, stored transposed, with its post factor, forward and
+    inverse; K5's.  The wrappers take them for a CPU tensor, K5's in
+    place."""
+    n1, n2 = shape[-2:]
+    v = _t(_rand(shape, 40 + n1))
+    post_t = _t(_rand((n2, n1), 42))
+    vt = v.transpose(-1, -2).contiguous()
+    if form == "dif":
+        want = nc.ntt_cols_dif(vt).transpose(-1, -2)
+        cases = [(nc.ntt_rows_dif(v), want)]
+        x = v.clone()
+        assert nc.ntt_rows_dif_cuda(x) is x
+        cases.append((x, want))
+    else:
+        cases = []
+        for inverse in (False, True):
+            want = nc.ntt_cols(vt, inverse)
+            cases += [(nc.ntt_rows(v, inverse), want),
+                      (nc.ntt_rows_cuda(v, inverse), want),
+                      (nc.ntt_rows(v, inverse, post_t),
+                       nc.ntt_cols(vt, inverse, post=post_t))]
+    for got, want in cases:
+        assert tuple(got.shape) == tuple(want.shape)
+        np.testing.assert_array_equal(_u(got), _u(want))
+
+
+@pytest.mark.parametrize("n1,r", [(16, 3), (1024, 3), (64, 1), (2, 1),
+                                  (8, 0)])
+def test_zero_tail_factors_replace_first_dif_stages(n1, r):
+    """K4's and K5's zero tail: the first r DIF stages on [prefix; zeros]
+    leave segment c as prefix * factors[c * Q:(c + 1) * Q], each segment
+    then a Q-point DIF of its own (Q = n1 / 2^r)."""
+    q = n1 >> r
+    prefix = _t(_rand((q, 4), 50 + n1))
+    fac = _t(nc.zero_tail_factors_u64(n1, r)).reshape(1 << r, q)
+    np.testing.assert_array_equal(_u(fac[0]), np.ones(q, np.uint64))
+    segments = [nc.ntt_cols_dif(gf.mul(prefix, fac[c][:, None]))
+                for c in range(1 << r)]
+    np.testing.assert_array_equal(
+        _u(torch.cat(segments)),
+        _u(nc.ntt_cols_dif(prefix, n1 - q)))
+
+
+@pytest.mark.parametrize("log_n,B", [(9, 1), (11, 3), (13, 1), (13, 3)])
+def test_transpose_free_four_step_ntt_matches_sharded_ntt(log_n, B):
+    """n1 != n2 (odd log2 n): K3 down the columns, K3's row form with the
+    transposed store, against the JAX package's schedule."""
+    from plonky2_tpu.parallel import sharded_ntt as fs
+    v = _rand((B, 1 << log_n), 60 + log_n)
+    for inverse in (False, True):
+        want = _from_jax(jax.jit(fs.batched_four_step_ntt,
+                                 static_argnums=1)(_jax_pair(v), inverse))
+        np.testing.assert_array_equal(
+            _u(four_step.batched_four_step_ntt(_t(v), inverse)), want)
+
+
+@pytest.mark.parametrize("log_m,r,B", [(9, 1, 1), (11, 2, 3), (13, 3, 1),
+                                       (11, 3, 3), (13, 1, 3)])
+def test_transpose_free_zero_tail_schedules_match_sharded_ntt(
+        log_m, r, B, monkeypatch):
+    """Both zero-tail schedules at n1 != n2: natural order (K4, then K3's
+    row form) against the JAX batched_four_step_zero_tail_ntt; leaf order
+    (K5, then K5's row form in place) against the JAX
+    _four_step_zero_tail_bitrev_pallas in interpret mode."""
+    from plonky2_tpu.parallel import sharded_ntt as fs
+    q = 1 << (log_m - r)
+    v = _rand((B, q), 70 + log_m + r)
+    want = _from_jax(jax.jit(fs.batched_four_step_zero_tail_ntt,
+                             static_argnums=1)(_jax_pair(v), r))
+    np.testing.assert_array_equal(
+        _u(four_step.batched_four_step_zero_tail_ntt(_t(v), r)), want)
+    monkeypatch.setenv("PLONKY2_TPU_PALLAS_NTT", "interpret")
+    n1 = max(1 << (log_m // 2), 1 << r)
+    want = _from_jax(jax.jit(fs._four_step_zero_tail_bitrev_pallas,
+                             static_argnums=(1, 2))(_jax_pair(v), r, n1))
+    np.testing.assert_array_equal(
+        _u(four_step.batched_four_step_zero_tail_bitrev(_t(v), r)), want)
+
+
 def test_fused_factors_are_pointwise_products():
     v, pre, post = _rand((2, 8, 16), 3), _rand((8, 16), 4), _rand((8, 16), 5)
     got = nc.ntt_cols(_t(v), True, pre=_t(pre), post=_t(post))
