@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-The main paths are two rounds of the flagship proof (the hash-tree circuit,
-234 wires, 2^18 rows, rate_bits 3, cap height 4, no blinding):
+The main paths are the rounds of the flagship proof (the hash-tree circuit,
+234 wires, 2^18 rows, rate_bits 3, cap height 4, no blinding) and the
+whole proof after the witness:
 
 * the wires commitment: PolynomialBatch.from_values on the 234 x 2^18
   witness (IFFT -> coset LDE in leaf order -> Poseidon leaf hash -> Merkle
@@ -11,7 +12,15 @@ The main paths are two rounds of the flagship proof (the hash-tree circuit,
 * the quotient round (plonk/prover.py:quotient_round): partial products ->
   Z/PP commitment -> the compiled constraint program over the 2^21-point
   quotient coset -> coset INTT -> quotient commitment, plus the Z/PP
-  polynomials' natural-order coset LDE (ops/ntt.py:lde_coset_ntt).
+  polynomials' natural-order coset LDE (ops/ntt.py:lde_coset_ntt), with
+  its challenges drawn from the port's transcript (iop/challenger.py);
+* the opening round (plonk/prover.py:opening_round, phases 7-8): zeta, the
+  opening set of the four oracles' 354 polynomials, the FRI composition
+  over the 2^21-point LDE, four fold layers of arity 16, the proof of work
+  (16 bits) and 28 query rounds, on the two rounds' commitments;
+* the whole proof after the witness (plonk/prover.py:prove, phases 2-8),
+  from the same witness, and at 2^10 rows the card's proof against the one
+  the same machine makes with device="cpu".
 
 The script builds the kernels from csrc/ with nvcc (one process per
 source, in parallel), holds each kernel, in each of its forms (K3 and K5
@@ -19,16 +28,19 @@ down the columns and along the rows), against its plain PyTorch version on
 the card (exact equality: integer arithmetic, tolerance 0), runs each path
 at full width with its launch counts set to 0 just before and read just
 after, holds the full-width results against the plain versions on subsets,
-verifies the openings, and prints one JSON line with each TPU kernel's
-launches, time and bound, split by form and by path, and the commitment's
-Merkle levels (K2) launch by launch.  Every phase prints a flushed line
+verifies the openings and every FRI query path, and prints one JSON line
+with each TPU kernel's launches, time and bound, split by form and by
+path, and the Merkle levels (K2) of the commitment and of the FRI layer
+trees launch by launch.  Every phase prints a flushed line
 before it starts and when it ends; any failure raises and exits non-zero.
 The last line of standard output is the run's device summary.
 
-It also traces one warm quotient round with torch.profiler and prints the
-device's busy and idle shares of it, and (phase 8) measures the card's
-rate of independent 32-bit multiplies in four instruction forms and counts
-the multiply instructions of one field product in the SASS
+It also traces one warm commitment, quotient round, opening round and
+proof with torch.profiler and prints the device's busy and idle shares of
+each, times the stages of the opening round and of the proof and the
+host's Poseidon rates, and (the last phase) measures the card's rate of
+independent 32-bit multiplies in four instruction forms and counts the
+multiply instructions of one field product in the SASS
 (plonky2_tpu_torch/csrc/probes/).
 
 It imports nothing of JAX or of the JAX package, needs one card, and writes
@@ -36,6 +48,7 @@ nothing outside the kernels' build directory.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -62,6 +75,16 @@ PROGRAM_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "plonky2_tpu_torch", "plonk", "programs",
                             "hash_tree_wide_ecc.npz")
 QUOTIENT_CHUNK = 1 << 21        # lanes per K6 launch (sweep below, PERF.md)
+# The opening round: the flagship FRI config (plonky2_tpu/plonk/config.py:
+# 9-12, proof of work 16 bits, constant arity 2^4 down to 2^5
+# coefficients), a seeded circuit digest and public inputs read from
+# these witness cells (wire, row).
+POW_BITS = 16
+ARITY_BITS = 4
+FINAL_POLY_BITS = 5
+PUBLIC_INPUT_WIRES = ((0, 0), (1, 0), (2, 0), (3, 0))
+REDUCED_LOG_N = 10              # the card-vs-CPU proof
+CHECK_POINTS = 8
 CHUNK_SWEEP = [1 << k for k in range(15, 22)]
 CHECK_LANES = 4096
 
@@ -131,6 +154,10 @@ KERNELS = {
 COMMIT_PATH = ("plk_hash_leaves", "plk_compress_level", "plk_ntt_cols_dit",
                "plk_ntt_rows_dit", "plk_ntt_cols_dif", "plk_ntt_rows_dif")
 QUOTIENT_PATH = tuple(KERNELS)
+OPENING_PATH = COMMIT_PATH
+# a proof does not run K4: the quotient gathers its inputs from the
+# commitments' leaves; phase 6 runs the natural-order LDE beside the round
+PROVE_PATH = tuple(e for e in KERNELS if e != "plk_ntt_cols_zero_tail")
 
 
 def kernel_label(entry: str) -> str:
@@ -353,7 +380,8 @@ def phase_kernels(dev) -> dict:
             r.update(kernel_ms_at_plain_shape=k_ms, plain_ms=p_ms,
                      plain_shape=what)
 
-    for L, make in ((234, rand_field), (2481, rand_field),
+    # the commitments' widths, the FRI layers' 2 x 16, and boundary values
+    for L, make in ((234, rand_field), (2481, rand_field), (32, rand_field),
                     (234, boundary_field), (9, boundary_field)):
         leaves = make(rng, (L, 1 << 14), dev)
         kind = " boundary" if make is boundary_field else ""
@@ -384,8 +412,10 @@ def phase_kernels(dev) -> dict:
                 lambda: nc.ntt_cols(a, True, pre, post))
     # K5 with the LDE's tail of 896 rows at the main path's n2, without a
     # tail, with a ragged prefix (q not a power of two) and a small n2
+    # and the FRI folds' evaluations without a tail (2^17 and 2^5 points)
     for q, tail, n2 in ((128, 896, 2048), (128, 896, 512), (1024, 0, 512),
-                        (2048, 0, 64), (100, 924, 64), (3, 13, 8)):
+                        (2048, 0, 64), (100, 924, 64), (3, 13, 8),
+                        (256, 0, 512), (4, 0, 8)):
         n1 = q + tail
         a = rand_field(rng, (4, q, n2), dev)
         a[0] = boundary_field(rng, (q, n2), dev)
@@ -419,7 +449,8 @@ def phase_kernels(dev) -> dict:
     # LDE and INTT pass 2: n1 = 1024, n2 = 2048) and small, ragged ones;
     # K5's runs in place on a copy of the input
     for B, n1, n2 in ((4, 512, 512), (4, 1024, 2048), (3, 2048, 1024),
-                      (2, 16, 8), (3, 2, 64), (2, 1, 8)):
+                      (2, 256, 512), (2, 4, 8), (2, 16, 8), (3, 2, 64),
+                      (2, 1, 8)):
         a = rand_field(rng, (B, n1, n2), dev)
         a[0] = boundary_field(rng, (n1, n2), dev)
         post = rand_field(rng, (n2, n1), dev)
@@ -496,6 +527,7 @@ def timed_path(run, path, label, keep=lambda out: None):
     import torch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     reset_launch_counts()
     t = time.perf_counter()
     out = run(None)
@@ -504,7 +536,8 @@ def timed_path(run, path, label, keep=lambda out: None):
     launches = read_launch_counts()
     peak = torch.cuda.max_memory_allocated()
     log(f"  {label} cold run {cold_s:.3f} s; launches {launches}; peak "
-        f"max_memory_allocated {peak / 2**30:.2f} GiB")
+        f"max_memory_allocated {peak / 2**30:.3f} GiB ({resident / 2**30:.3f}"
+        " GiB of it held by earlier phases)")
     for entry in path:
         check(launches[entry] > 0, f"{entry} was not launched on the {label}")
     warm_s, per_kernel, recs = [], [], None
@@ -518,7 +551,8 @@ def timed_path(run, path, label, keep=lambda out: None):
             warm_s.append(time.perf_counter() - t)
         per_kernel.append(rec.ms_by_kernel())
         recs = rec.records
-    log(f"  {label} warm runs (s): {', '.join(f'{s:.4f}' for s in warm_s)}")
+    log(f"  {label} warm runs (s): {', '.join(f'{s:.4f}' for s in warm_s)}"
+        f" (median {np.median(warm_s):.4f}; cold {cold_s:.3f})")
     kernel_ms = {k: float(np.median([r[k] for r in per_kernel]))
                  for k in per_kernel[0]}
     for k, ms in kernel_ms.items():
@@ -533,6 +567,7 @@ def timed_path(run, path, label, keep=lambda out: None):
     last_run = [(name, args, s.elapsed_time(e)) for name, args, s, e in recs]
     return out, {"cold_s": cold_s, "warm_s": warm_s, "launches": launches,
                  "kernel_ms": kernel_ms, "cost": cost, "peak_bytes": peak,
+                 "resident_bytes": resident,
                  "last_run": last_run}
 
 
@@ -575,6 +610,7 @@ def phase_full_width(dev, rng):
 
     batch, res = timed_path(run, COMMIT_PATH, "commit path")
     res["merkle_levels"] = log_merkle_levels(res)
+    res["profile"] = profile_run(lambda: run(None))
     check_full_width(batch, values, rng)
     res.update(batch=batch, values=values)
     return res
@@ -649,14 +685,17 @@ def phase_openings(batch, rng):
 def phase_quotient(dev, rng, full):
     """The quotient round at full width on the flagship shapes, fed the
     commitment path's witness and wires commitment, a commitment to 84
-    random constants-sigmas polynomials, random sigmas and random
-    challenges (the circuit's real ones need its witness generators, which
-    are not ported).  The kernels compute the same function on any inputs."""
-    from plonky2_tpu_torch.field.goldilocks import P
+    random constants-sigmas polynomials, random sigmas, a seeded circuit
+    digest and public inputs (ProverData), and the challenges of the
+    port's transcript (the circuit's real data need its witness generators
+    and circuit builder, which are not ported).  The kernels compute the
+    same function on any inputs."""
     from plonky2_tpu_torch.fri.oracle import PolynomialBatch
+    from plonky2_tpu_torch.hash import poseidon as pos
     from plonky2_tpu_torch.ops import ntt
     from plonky2_tpu_torch.plonk.constraint_program import linearize
-    from plonky2_tpu_torch.plonk.prover import quotient_round
+    from plonky2_tpu_torch.plonk.prover import (quotient_round,
+                                                start_transcript)
     prog, shape = flagship_program()
     check((shape.num_wires, shape.degree_bits, shape.rate_bits,
            shape.cap_height, shape.zero_knowledge)
@@ -668,10 +707,18 @@ def phase_quotient(dev, rng, full):
         rand_field(rng, (shape.num_preprocessed_polys, n), dev), RATE_BITS,
         False, CAP_HEIGHT, device=dev)
     sigmas = rand_field(rng, (shape.num_routed_wires, n), dev)
-    draw = lambda k: [int(x) for x in rng.integers(  # noqa: E731
-        0, P, size=k, dtype=np.uint64)]
+    data = flagship_data(shape, prog, cs_batch.coeffs_dev, sigmas, rng)
     nch = shape.num_challenges
-    challenges = (draw(4), draw(nch), draw(nch), draw(nch))
+    pih = pos.hash_no_pad(np.array(data.public_inputs(values),
+                                   dtype=np.uint64))
+    challenger, betas, gammas = start_transcript(
+        data, pih, wires_batch.merkle_tree.cap)
+    drawn = []
+
+    def alphas(zspp_batch):
+        challenger.observe_cap(zspp_batch.merkle_tree.cap)
+        drawn.append(challenger.get_n_challenges(nch))
+        return drawn[-1]
     lin = linearize(prog)
     log(f"  program: {prog.n_inputs} inputs, {prog.n_regs} registers, "
         f"{prog.n_waves} waves x {prog.wave_width}, {prog.n_ops} real ops "
@@ -680,21 +727,51 @@ def phase_quotient(dev, rng, full):
         f"{QUOTIENT_CHUNK} lanes")
 
     def run(quotient):
+        # the first run draws the alphas after the Z/PP cap; the warm runs
+        # reuse them (the same values give the same cap)
         out = quotient_round(values, wires_batch, sigmas, shape, prog,
-                             cs_batch, *challenges, quotient=quotient,
-                             chunk=QUOTIENT_CHUNK, device=dev)
+                             cs_batch, pih, betas, gammas,
+                             alphas if quotient is None else drawn[0],
+                             quotient=quotient, chunk=QUOTIENT_CHUNK,
+                             device=dev)
         nat = ntt.lde_coset_ntt(out.zspp_batch.coeffs_dev, RATE_BITS)
         return out, nat
 
     (out, nat), res = timed_path(run, QUOTIENT_PATH, "quotient round",
                                  keep=lambda o: o[0].quotient)
+    challenges = (pih, betas, gammas, drawn[0])
+    log(f"  transcript: betas {betas}, gammas {gammas}, alphas {drawn[0]}")
     res["stages_ms"] = time_stages(out, values, wires_batch, sigmas, shape,
                                    challenges)
     res["profile"] = profile_run(lambda: run(out.quotient))
     sweep_chunks(out, wires_batch, challenges)
     check_quotient(out, nat, values, wires_batch, sigmas, shape, prog,
                    challenges, rng)
+    res.update(data=data, challenger=challenger, out=out, cs_batch=cs_batch)
     return res
+
+
+def flagship_data(shape, prog, cs_coeffs, sigmas, rng):
+    """The ProverData of the flagship circuit's shape and program, with the
+    given constants-sigmas coefficients and sigma values, the flagship FRI
+    parameters and a seeded circuit digest."""
+    from plonky2_tpu_torch.field.goldilocks import P
+    from plonky2_tpu_torch.fri.config import FriConfig, FriReductionStrategy
+    from plonky2_tpu_torch.plonk.prover_data import ProverData
+    fri = FriConfig(
+        rate_bits=shape.rate_bits, cap_height=shape.cap_height,
+        proof_of_work_bits=POW_BITS,
+        reduction_strategy=FriReductionStrategy.ConstantArityBits(
+            ARITY_BITS, FINAL_POLY_BITS),
+        num_query_rounds=NUM_QUERIES).fri_params(shape.degree_bits,
+                                                 shape.zero_knowledge)
+    return ProverData(
+        shape=shape,
+        num_constants=shape.num_preprocessed_polys - shape.num_routed_wires,
+        fri_params=fri, program=prog, cs_coeffs=cs_coeffs, sigmas=sigmas,
+        circuit_digest=tuple(int(x) for x in rng.integers(
+            0, P, size=4, dtype=np.uint64)),
+        public_input_wires=PUBLIC_INPUT_WIRES)
 
 
 def time_stages(out, values, wires_batch, sigmas, shape, challenges):
@@ -753,11 +830,15 @@ def profile_run(fn) -> dict:
     for e in sorted(events, key=lambda e: -dev_ms(e))[:12]:
         log(f"  profile: {dev_ms(e):9.3f} ms device  {e.count:6d} calls  "
             f"{e.key[:90]}")
+    copies = {e.key: [e.count, dev_ms(e)] for e in events
+              if "memcpy" in e.key.lower()}
+    for key, (count, ms) in copies.items():
+        log(f"  profile: copies {key}: {count} calls, {ms:.3f} ms device")
     log(f"  profile: wall {wall_ms:.3f} ms (traced), device busy "
         f"{busy_ms:.3f} ms, idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms):.3f}" if busy_ms else
         "  profile: torch.profiler recorded no device time")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms}
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "copies": copies}
 
 
 def sweep_chunks(out, wires_batch, challenges):
@@ -867,6 +948,374 @@ def check_partial_products(zspp, values, sigmas, shape, challenges, rng):
                       f"partial product {i} at column {col}")
     log(f"  Z/PP values on {len(cols)} sampled columns: equal to integer "
         "arithmetic")
+
+
+class StageTimer:
+    """The prover's ``timing``: each stage's wall time between two
+    synchronizations of the card, so host stages (the proof of work, the
+    transcript) count as well as device ones."""
+
+    def __init__(self):
+        self.ms = {}
+
+    @contextlib.contextmanager
+    def scope(self, name: str):
+        import torch
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            yield
+        finally:
+            torch.cuda.synchronize()
+            self.ms[name] = (self.ms.get(name, 0.0)
+                             + (time.perf_counter() - t) * 1e3)
+
+
+class FriSpy:
+    """Keeps what the last FRI proof computed, for the checks: the
+    composition's arguments and result, each fold's input, beta and
+    output, the layer trees and the query indices (wraps three functions of
+    fri/device_prover.py; launches and results are untouched)."""
+    NAMES = ("device_composition", "fold_coeffs", "fri_prover_query_rounds")
+
+    def __enter__(self):
+        from plonky2_tpu_torch.fri import device_prover as tdp
+        self.mod = tdp
+        self.orig = {n: getattr(tdp, n) for n in self.NAMES}
+
+        def composition(*args):
+            out = self.orig["device_composition"](*args)
+            self.composition, self.folds = (args, out), []
+            return out
+
+        def fold(coeffs, beta, arity):
+            out = self.orig["fold_coeffs"](coeffs, beta, arity)
+            self.folds.append((coeffs, beta, arity, out))
+            return out
+
+        def queries(initial, trees, indices, params):
+            self.initial, self.trees = initial, trees
+            self.indices = list(indices)
+            return self.orig["fri_prover_query_rounds"](initial, trees,
+                                                        indices, params)
+        tdp.device_composition = composition
+        tdp.fold_coeffs = fold
+        tdp.fri_prover_query_rounds = queries
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.orig.items():
+            setattr(self.mod, n, f)
+        return False
+
+
+def proof_words(obj):
+    """Every number of a proof (dataclasses, lists, arrays), in order."""
+    import dataclasses
+    if dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from proof_words(getattr(obj, f.name))
+    elif isinstance(obj, (list, tuple)):
+        for x in obj:
+            yield from proof_words(x)
+    elif isinstance(obj, np.ndarray):
+        yield from (int(v) for v in obj.reshape(-1))
+    else:
+        yield int(obj)
+
+
+def phase_opening_round(dev, full, quot):
+    """The opening round at full width on the two rounds' commitments: the
+    transcript after the quotient round observes the quotient cap, draws
+    zeta, opens the 354 polynomials and proves them with FRI (four layers
+    of arity 16, 16 bits of proof of work, 28 queries).  One cold run
+    (counted), WARM_RUNS warm runs (timed per kernel), the stages one by
+    one, one traced run, then the checks."""
+    import copy
+    from plonky2_tpu_torch.plonk.prover import opening_round
+    data, out = quot["data"], quot["out"]
+    fp = data.fri_params
+    check(set(fp.reduction_arity_bits) == {ARITY_BITS}
+          and fp.final_poly_bits() <= FINAL_POLY_BITS, f"FRI params {fp}")
+    oracles = [quot["cs_batch"], full["batch"], out.zspp_batch,
+               out.quotient_batch]
+    log(f"  {sum(o.coeffs_dev.shape[0] for o in oracles)} polynomials in 4 "
+        f"oracles; FRI arities {[1 << b for b in fp.reduction_arity_bits]}, "
+        f"final polynomial {fp.final_poly_len()} coefficients, "
+        f"{fp.config.num_query_rounds} queries, proof of work "
+        f"{fp.config.proof_of_work_bits} bits")
+
+    def run(_, timing=None):
+        return opening_round(copy.deepcopy(quot["challenger"]), oracles,
+                             data, timing)
+
+    with FriSpy() as spy:
+        (openings, proof), res = timed_path(run, OPENING_PATH,
+                                            "opening round")
+        res["merkle_levels"] = log_merkle_levels(res)
+        timer = StageTimer()
+        t = time.perf_counter()
+        with count_host_permutations() as perms:
+            run(None, timer)
+        log_stages(timer, time.perf_counter() - t)
+        res["stages_ms"] = timer.ms
+        res["host"] = log_host_hashing(perms[0], proof.pow_witness)
+        res["profile"] = profile_run(lambda: run(None))
+        check(list(proof_words(run(None))) == list(proof_words(
+            (openings, proof))), "two runs of the opening round differ")
+        log(f"  proof of work witness {proof.pow_witness}")
+        check_query_paths(spy, proof, fp)
+        check_composition(spy)
+        check_folds(spy, proof, fp)
+    res.update(openings=openings, proof=proof)
+    return res
+
+
+@contextlib.contextmanager
+def count_host_permutations():
+    """Counts the host transcript's permutations (hash/poseidon.py:
+    permute_ints) while the block runs; yields a one-element list."""
+    from plonky2_tpu_torch.hash import poseidon as pos
+    orig, count = pos.permute_ints, [0]
+
+    def counted(state):
+        count[0] += 1
+        return orig(state)
+    pos.permute_ints = counted
+    try:
+        yield count
+    finally:
+        pos.permute_ints = orig
+
+
+def log_host_hashing(n_perms: int, pow_witness: int) -> dict:
+    """The host's Poseidon rates on this machine: the challenger's scalar
+    permutation and the proof-of-work grind's numpy batch."""
+    from plonky2_tpu_torch.fri.prover import POW_BATCH
+    from plonky2_tpu_torch.hash import poseidon as pos
+    state = list(range(12))
+    t = time.perf_counter()
+    for _ in range(200):
+        pos.permute_ints(state)
+    scalar_ms = (time.perf_counter() - t) * 1e3 / 200
+    batch = np.zeros((POW_BATCH, 12), dtype=np.uint64)
+    t = time.perf_counter()
+    for _ in range(3):
+        pos.poseidon(batch)
+    batch_ms = (time.perf_counter() - t) * 1e3 / 3
+    batches = pow_witness // POW_BATCH + 1
+    log(f"  host: {n_perms} transcript permutations at {scalar_ms:.3f} ms "
+        f"each ({n_perms * scalar_ms:.1f} ms); the grind's numpy batch of "
+        f"{POW_BATCH}: {batch_ms:.1f} ms ({batch_ms / POW_BATCH * 1e3:.2f} us "
+        f"a permutation), {batches} batches for witness {pow_witness} "
+        f"(2^{POW_BITS} expected permutations: "
+        f"{(1 << POW_BITS) / POW_BATCH * batch_ms:.0f} ms)")
+    return {"transcript_permutations": n_perms, "scalar_ms": scalar_ms,
+            "pow_batch_ms": batch_ms, "pow_batches": batches}
+
+
+def log_stages(timer, wall_s):
+    for name, ms in timer.ms.items():
+        log(f"  stage {name}: {ms:.3f} ms")
+    log(f"  stages sum {sum(timer.ms.values()):.3f} ms of a {wall_s:.4f} s "
+        "run (each stage between two synchronizations)")
+
+
+def check_query_paths(spy, proof, fp):
+    """Every query's rows and paths, in the initial trees and the layer
+    trees, verify against their caps; a changed value does not."""
+    from plonky2_tpu_torch.field.goldilocks import P
+    from plonky2_tpu_torch.hash.merkle import verify_merkle_proof_to_cap
+    check(len(spy.indices) == len(proof.query_round_proofs)
+          == fp.config.num_query_rounds, "query count")
+    n_paths = 0
+    for x, r in zip(spy.indices, proof.query_round_proofs):
+        for t, (row, path) in zip(spy.initial,
+                                  r.initial_trees_proof.evals_proofs):
+            check(verify_merkle_proof_to_cap(row, x, t.cap, path),
+                  f"initial tree path of query {x}")
+            n_paths += 1
+        xi = x
+        for tree, step, ab in zip(spy.trees, r.steps,
+                                  fp.reduction_arity_bits):
+            xi >>= ab
+            check(verify_merkle_proof_to_cap(step.evals.reshape(-1), xi,
+                                             tree.cap, step.merkle_proof),
+                  f"layer path of query {x}")
+            n_paths += 1
+    step = proof.query_round_proofs[0].steps[0]
+    bad = step.evals.copy()
+    bad[0, 0] = (int(bad[0, 0]) + 1) % P
+    check(not verify_merkle_proof_to_cap(
+        bad.reshape(-1), spy.indices[0] >> fp.reduction_arity_bits[0],
+        spy.trees[0].cap, step.merkle_proof), "a changed layer value verified")
+    log(f"  {n_paths} query paths verify against their caps; a changed "
+        "value does not")
+
+
+def check_composition(spy):
+    """The composition at CHECK_POINTS leaf positions against Python
+    integer arithmetic from the committed leaves, and its coefficients
+    against the plain coset NTT."""
+    import torch
+    from plonky2_tpu_torch.field import extension as ext
+    from plonky2_tpu_torch.field import fft
+    from plonky2_tpu_torch.field.convert import to_u64
+    from plonky2_tpu_torch.fri import device_prover as tdp
+    (instance, oracles, alpha, batches, lde_bits), (vals, coeffs) = \
+        spy.composition
+    dev = coeffs.device
+    N = 1 << lde_bits
+    rng = np.random.default_rng(SEED + 2)
+    js = [0, N - 1] + [int(j) for j in rng.integers(0, N, CHECK_POINTS - 2)]
+    jt = torch.tensor(js, device=dev)
+    xs = [int(x) for x in to_u64(tdp.xs_br(lde_bits, str(dev))[jt])]
+    leaves = [to_u64(o.leaves_dev[:, jt]) for o in oracles]
+    got = list(zip(*(to_u64(v[jt]) for v in vals)))
+    for k, x in enumerate(xs):
+        comp = (0, 0)
+        for batch, claimed in zip(instance.batches, batches):
+            r, rz, a = (0, 0), (0, 0), (1, 0)
+            for info, y in zip(batch.polynomials, claimed.values):
+                leaf = int(leaves[info.oracle_index][info.polynomial_index, k])
+                r = ext.s_add(r, ext.s_mul(a, (leaf, 0)))
+                rz = ext.s_add(rz, ext.s_mul(a, y))
+                a = ext.s_mul(a, alpha)
+            q = ext.s_mul(ext.s_sub(r, rz),
+                          ext.s_inv(ext.s_sub((x, 0), batch.point)))
+            comp = ext.s_add(ext.s_mul(comp, a), q)
+        want = ext.s_mul(comp, (x, 0))
+        check(tuple(int(v) for v in got[k]) == want,
+              f"composition at leaf {js[k]}")
+    natural = torch.stack([v[tdp.bitrev_perm(N, str(dev))] for v in vals])
+    check(max_abs_err(fft.coset_fft(coeffs), natural) == 0,
+          "plain coset NTT of the composition's coefficients differs")
+    log(f"  composition at {len(js)} leaves equal to integer arithmetic over "
+        f"the {sum(len(b.polynomials) for b in instance.batches)} opened "
+        "leaves; plain coset NTT of its 2 x 2^"
+        f"{lde_bits} coefficients equal to its values")
+
+
+def check_folds(spy, proof, fp):
+    """Each fold at CHECK_POINTS outputs against integer arithmetic; each
+    layer tree's leaves against the composition's values (layer 0) or the
+    plain coset NTT of the previous fold (K5's leaf order); the final
+    polynomial is the last fold's head and its tail is zero."""
+    import torch
+    from plonky2_tpu_torch.field import extension as ext
+    from plonky2_tpu_torch.field import fft
+    from plonky2_tpu_torch.field.convert import to_u64
+    from plonky2_tpu_torch.field.goldilocks import P
+    from plonky2_tpu_torch.fri import device_prover as tdp
+    rng = np.random.default_rng(SEED + 3)
+    (_, (vals, _)) = spy.composition
+    check(len(spy.folds) == len(spy.trees) == len(fp.reduction_arity_bits),
+          "fold count")
+    shift = 7
+    for i, ((coeffs, beta, arity, out), tree) in enumerate(
+            zip(spy.folds, spy.trees)):
+        if i == 0:
+            prev = vals
+        else:
+            prev_out = spy.folds[i - 1][3]
+            values = fft.coset_fft(prev_out, shift)
+            perm = tdp.bitrev_perm(values.shape[1], str(values.device))
+            prev = (values[0][perm], values[1][perm])
+        m = prev[0].shape[0] // arity
+        want = torch.stack([prev[0].reshape(m, arity),
+                            prev[1].reshape(m, arity)], -1).reshape(m, -1).T
+        check(max_abs_err(tree.leaves_dev, want) == 0,
+              f"layer {i} leaves differ")
+        shift = pow(shift, arity, P)
+        host_in, host_out = to_u64(coeffs), to_u64(out)
+        for j in [0, host_out.shape[1] - 1] + [
+                int(x) for x in rng.integers(0, host_out.shape[1],
+                                             CHECK_POINTS - 2)]:
+            acc, b = (0, 0), (1, 0)
+            for t in range(arity):
+                c = (int(host_in[0, j * arity + t]),
+                     int(host_in[1, j * arity + t]))
+                acc = ext.s_add(acc, ext.s_mul(b, c))
+                b = ext.s_mul(b, beta)
+            check((int(host_out[0, j]), int(host_out[1, j])) == acc,
+                  f"fold {i} output {j}")
+    last = to_u64(spy.folds[-1][3])
+    fl = fp.final_poly_len()
+    check(not last[:, fl:].any() and (proof.final_poly == last[:, :fl].T)
+          .all(), "final polynomial")
+    log(f"  {len(spy.folds)} folds equal to integer arithmetic at "
+        f"{CHECK_POINTS} outputs each; every layer tree's leaves equal to "
+        f"the plain coset NTT in leaf order; final polynomial "
+        f"{fl} coefficients, tail of {last.shape[1] - fl} zero")
+
+
+def phase_prove(dev, full, quot, opening):
+    """The whole proof after the witness (plonk/prover.py:prove, phases
+    2-8) at full width, on phase 4's witness and phase 6's circuit data:
+    one cold run (counted), WARM_RUNS warm runs, the stages, one traced
+    run; its proof must equal what phases 4, 6 and 7 made step by step,
+    and its query paths verify."""
+    import torch
+    from plonky2_tpu_torch.plonk.prover import ProverContext, prove
+    data, values = quot["data"], full["values"]
+    t = time.perf_counter()
+    ctx = ProverContext(data, dev)
+    torch.cuda.synchronize()
+    log(f"  prover context (constants-sigmas commitment, quotient context): "
+        f"{time.perf_counter() - t:.3f} s")
+
+    def run(_, timing=None):
+        return prove(data, values, context=ctx, device=dev, timing=timing)
+
+    with FriSpy() as spy:
+        proof, res = timed_path(run, PROVE_PATH, "prove (phases 2-8)")
+        check_query_paths(spy, proof.proof.opening_proof, data.fri_params)
+        timer = StageTimer()
+        t = time.perf_counter()
+        run(None, timer)
+        log_stages(timer, time.perf_counter() - t)
+        res["stages_ms"] = timer.ms
+        res["profile"] = profile_run(lambda: run(None))
+    p = proof.proof
+    check(list(proof_words([p.openings, p.opening_proof])) == list(
+        proof_words([opening["openings"], opening["proof"]])),
+        "prove differs from the phases run one by one")
+    check((p.wires_cap.digests == full["batch"].merkle_tree.cap.digests)
+          .all() and (p.quotient_polys_cap.digests == quot["out"]
+                      .quotient_batch.merkle_tree.cap.digests).all(),
+          "prove's caps differ from phases 4 and 6")
+    log(f"  proof: {len(list(proof_words(proof)))} field elements and "
+        "numbers, equal to phases 4, 6 and 7's; public inputs "
+        f"{proof.public_inputs}")
+    return res
+
+
+def phase_reduced(dev, rng):
+    """At 2^REDUCED_LOG_N rows (the flagship's widths and program, random
+    inputs), the card's proof equals the one this machine makes with
+    device="cpu" (the plain versions)."""
+    import dataclasses
+    from plonky2_tpu_torch.field.goldilocks import P
+    from plonky2_tpu_torch.plonk.prover import prove
+    prog, shape = flagship_program()
+    shape = dataclasses.replace(shape, degree_bits=REDUCED_LOG_N)
+    n = shape.degree
+    draw = lambda rows: rng.integers(0, P, size=(rows, n),  # noqa: E731
+                                     dtype=np.uint64)
+    data = flagship_data(shape, prog, draw(shape.num_preprocessed_polys),
+                         draw(shape.num_routed_wires), rng)
+    witness = draw(shape.num_wires)
+    proofs = {}
+    for where in (dev, "cpu"):
+        t = time.perf_counter()
+        proofs[str(where)] = list(proof_words(prove(data, witness,
+                                                    device=where)))
+        log(f"  proof at 2^{REDUCED_LOG_N} rows on {where}: "
+            f"{time.perf_counter() - t:.2f} s, "
+            f"{len(proofs[str(where)])} numbers")
+    check(proofs[str(dev)] == proofs["cpu"],
+          "the card's proof differs from the CPU's")
+    log("  the card's proof equals the CPU's, number for number")
 
 
 def phase_probes(dev) -> dict:
@@ -1008,13 +1457,26 @@ def main() -> int:
     with phase("6 quotient round (full width: Z/PP 20 x 2^18, quotient "
                "coset 2^21)"):
         quot = phase_quotient(dev, rng, full)
-    with phase("7 kernels line"):
-        line = kernels_line(kern, {"commit": full, "quotient": quot}, smi)
-        line["paths"] = {k: {f: p[f] for f in ("cold_s", "warm_s",
-                                               "peak_bytes")}
-                         for k, p in (("commit", full), ("quotient", quot))}
-        line["paths"]["commit"]["merkle_levels"] = full["merkle_levels"]
-    with phase("8 int32 multiply rate and field-product SASS"):
+    with phase("7 opening round (full width: 354 polynomials, 4 fold "
+               "layers of arity 16, 28 queries, proof of work 16 bits)"):
+        opening = phase_opening_round(dev, full, quot)
+    with phase("8 prove, phases 2-8 (full width)"):
+        proved = phase_prove(dev, full, quot, opening)
+    with phase(f"9 proof at 2^{REDUCED_LOG_N} rows: card against CPU"):
+        phase_reduced(dev, rng)
+    paths = {"commit": full, "quotient": quot, "openings": opening,
+             "prove": proved}
+    with phase("10 kernels line"):
+        line = kernels_line(kern, paths, smi)
+        line["paths"] = {
+            k: {f: p[f] for f in ("cold_s", "warm_s", "peak_bytes",
+                                  "resident_bytes", "profile") if f in p}
+            for k, p in paths.items()}
+        for k, p in paths.items():
+            for f in ("stages_ms", "merkle_levels", "host"):
+                if f in p:
+                    line["paths"][k][f] = p[f]
+    with phase("11 int32 multiply rate and field-product SASS"):
         line["probes"] = phase_probes(dev)
     print(json.dumps(line), flush=True)
     print(f"total seconds: {time.perf_counter() - T0:.1f}", flush=True)

@@ -61,6 +61,10 @@ def sub(a, b):
     return torch.where(ult(a, b), d - EPS, d)
 
 
+def neg(a):
+    return torch.where(a == 0, a, P_I64 - a)
+
+
 def mul_wide(a, b):
     """64x64 -> 128-bit product as (lo64, hi64) int64 bit patterns."""
     a_lo, a_hi = a & M32, srl(a, 32)
@@ -96,6 +100,16 @@ def mul(a, b):
 
 def mul_nc(a, b):
     return reduce128_nc(*mul_wide(a, b))
+
+
+def modsum(a, dim: int = -1):
+    """Modular sum of canonical values along `dim` (at most 2^31 of them):
+    the 32-bit halves are summed exactly in int64, then recombined and
+    reduced once, as the JAX package's host ``modsum`` does."""
+    lo = (a & M32).sum(dim)
+    hi = srl(a, 32).sum(dim)
+    low = lo + ((hi & M32) << 32)
+    return reduce128(low, srl(hi, 32) + ult(low, lo).to(torch.int64))
 
 
 def exp_u64(a, e: int):

@@ -2,7 +2,7 @@
 
 The port's own copy of what it needs from plonky2_tpu/field/goldilocks.py:
 p = 2^64 - 2^32 + 1, EPSILON = 2^32 - 1 = 2^64 mod p, two-adicity 32, the
-canonical two-adic generator, and the host-side ``sub``/``mul``/``inverse``/
+canonical two-adic generator, and the host-side ``add``/``sub``/``mul``/``inverse``/
 ``powers``/``two_adic_subgroup`` used to build twiddle, shift and domain
 tables.  Arrays hold canonical values in [0, p).
 """
@@ -20,6 +20,15 @@ _U64 = np.uint64
 _M32 = _U64(0xFFFFFFFF)
 _P = _U64(P)
 _EPS = _U64(EPSILON)
+
+
+def add(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a + b, on overflow plus EPSILON, then one subtract of p."""
+    a, b = np.asarray(a, _U64), np.asarray(b, _U64)
+    with np.errstate(over="ignore"):
+        s = a + b
+        s = np.where(s < a, s + _EPS, s)
+        return np.where(s >= _P, s - _P, s)
 
 
 def sub(a: np.ndarray, b: np.ndarray) -> np.ndarray:

@@ -3,7 +3,10 @@
 The port's counterpart of plonky2_tpu/hash/poseidon.py (constants, scalar
 permutation), hash/poseidon_jax.py (``poseidon_t``, ``hash_leaves_cols``,
 ``compress_pairs_cols``, in the same (12, B) column layout) and
-hash/poseidon_wires_jax.py (``poseidon_fast_t``).  Width 12, 4 + 22 + 4
+hash/poseidon_wires_jax.py (``poseidon_fast_t``), plus the numpy batch
+permutation ``poseidon`` and the sponges ``hash_n_to_m_no_pad`` and
+``hash_no_pad`` (JAX hash/poseidon.py), which the public-inputs hash and the
+proof-of-work grind run on the host.  Width 12, 4 + 22 + 4
 rounds, x^7 S-box, circulant + diagonal MDS.  ``poseidon_t`` runs the naive
 round schedule, ``poseidon_fast_t`` the fast partial-round one that kernels
 K1 and K2 run (hash/poseidon_cuda.py); both give the same permutation.
@@ -24,6 +27,7 @@ import torch
 
 from ..field import gf
 from ..field.convert import from_u64
+from ..field import goldilocks as gl
 from ..field.goldilocks import P
 
 WIDTH = 12
@@ -185,16 +189,45 @@ def _sbox_int(x: int) -> int:
     return x2 * x2 % P * (x2 * x % P) % P
 
 
+_FAST_INT = None
+
+
+def _fast_ints():
+    global _FAST_INT
+    if _FAST_INT is None:
+        ints = lambda a: [int(x) for x in a]  # noqa: E731
+        _FAST_INT = (ints(FAST_PARTIAL_FIRST_ROUND_CONSTANT),
+                     [ints(r) for r in FAST_PARTIAL_ROUND_INITIAL_MATRIX],
+                     ints(fast_round_constants_after_sbox()),
+                     [ints(r) for r in FAST_PARTIAL_ROUND_W_HATS],
+                     [ints(r) for r in FAST_PARTIAL_ROUND_VS])
+    return _FAST_INT
+
+
 def permute_ints(state) -> list:
-    """The permutation on 12 python ints (same schedule as poseidon_t)."""
+    """The permutation on 12 python ints, on the fast partial-round
+    schedule (the host challenger's and the Merkle checks' permutation;
+    equal to poseidon_t)."""
+    first, init, prc, w_hats, vs = _fast_ints()
+
+    def full_round(s, r):
+        s = [_sbox_int((x + c) % P) for x, c in zip(s, _RC_INT[r])]
+        return [sum(m * x for m, x in zip(row, s)) % P for row in _MDS_INT]
+
     s = [int(x) % P for x in state]
-    for r in range(N_ROUNDS):
-        s = [(x + c) % P for x, c in zip(s, _RC_INT[r])]
-        if is_full_round(r):
-            s = [_sbox_int(x) for x in s]
-        else:
-            s[0] = _sbox_int(s[0])
-        s = [sum(m * x for m, x in zip(row, s)) % P for row in _MDS_INT]
+    for r in range(HALF_N_FULL_ROUNDS):
+        s = full_round(s, r)
+    s = [(x + c) % P for x, c in zip(s, first)]
+    rest = [sum(init[r][c] * s[r + 1] for r in range(WIDTH - 1)) % P
+            for c in range(WIDTH - 1)]
+    s0 = s[0]
+    for r in range(N_PARTIAL_ROUNDS):
+        x0 = (_sbox_int(s0) + prc[r]) % P
+        s0 = (FAST_MS0 * x0 + sum(w * x for w, x in zip(w_hats[r], rest))) % P
+        rest = [(x + x0 * v) % P for x, v in zip(rest, vs[r])]
+    s = [s0] + rest
+    for r in range(HALF_N_FULL_ROUNDS + N_PARTIAL_ROUNDS, N_ROUNDS):
+        s = full_round(s, r)
     return s
 
 
@@ -213,3 +246,59 @@ def hash_or_noop_ints(leaf) -> list:
 
 def compress_ints(left, right) -> list:
     return permute_ints(list(left) + list(right) + [0] * 4)[:4]
+
+
+# -- batch path (numpy uint64) for the host sponge and the proof of work ----
+
+
+def _sbox_np(x: np.ndarray) -> np.ndarray:
+    x2 = gl.mul(x, x)
+    return gl.mul(gl.mul(x2, x), gl.mul(x2, x2))
+
+
+def _mds_np(state: np.ndarray) -> np.ndarray:
+    """acc[r] = sum_c M[r, c] * state[c], exact through 32-bit halves."""
+    acc_lo = (state & np.uint64(0xFFFFFFFF)) @ MDS_MATRIX.T
+    acc_hi = (state >> np.uint64(32)) @ MDS_MATRIX.T
+    with np.errstate(over="ignore"):
+        low = acc_lo + ((acc_hi & np.uint64(0xFFFFFFFF)) << np.uint64(32))
+    high = (acc_hi >> np.uint64(32)) + (low < acc_lo).astype(np.uint64)
+    return gl.reduce128(low, high)
+
+
+def poseidon(state: np.ndarray) -> np.ndarray:
+    """The permutation on states (..., 12) of canonical numpy uint64."""
+    state = np.asarray(state, dtype=np.uint64)
+    if state.shape[-1] != WIDTH:
+        raise ValueError(f"state: expected (..., {WIDTH}), got {state.shape}")
+    for r in range(N_ROUNDS):
+        state = gl.add(state, ALL_ROUND_CONSTANTS[r * WIDTH:(r + 1) * WIDTH])
+        if is_full_round(r):
+            state = _sbox_np(state)
+        else:
+            state = np.concatenate([_sbox_np(state[..., :1]),
+                                    state[..., 1:]], axis=-1)
+        state = _mds_np(state)
+    return state
+
+
+def hash_n_to_m_no_pad(inputs, num_outputs: int) -> np.ndarray:
+    """Overwrite-mode sponge of a 1-D input, squeezed to num_outputs."""
+    inputs = np.asarray(inputs, dtype=np.uint64).reshape(-1)
+    state = np.zeros(WIDTH, dtype=np.uint64)
+    for start in range(0, len(inputs), SPONGE_RATE):
+        chunk = inputs[start:start + SPONGE_RATE]
+        state[:len(chunk)] = chunk
+        state = poseidon(state)
+    outputs = []
+    while True:
+        for i in range(SPONGE_RATE):
+            outputs.append(state[i])
+            if len(outputs) == num_outputs:
+                return np.array(outputs, dtype=np.uint64)
+        state = poseidon(state)
+
+
+def hash_no_pad(inputs) -> np.ndarray:
+    """The 4-element digest of a 1-D input (the public-inputs hash)."""
+    return hash_n_to_m_no_pad(inputs, 4)

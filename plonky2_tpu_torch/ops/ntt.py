@@ -25,7 +25,7 @@ from ..parallel import four_step
 SHIFT = gl.MULTIPLICATIVE_GROUP_GENERATOR
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=16)
 def powers_table(base: int, n: int, device: str) -> torch.Tensor:
     """[1, base, ..., base^(n-1)] as an int64 tensor on `device`."""
     return from_u64(gl.powers(base, n), device)

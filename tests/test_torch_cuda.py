@@ -277,3 +277,63 @@ def test_cpu_tensor_without_device_runs_on_card(dev):
     assert batch.leaves_dev.device.type == "cuda"
     assert pc.hash_leaves_cols_cuda.launches == before[0] + 1
     assert nc.ntt_cols_cuda.launches > before[1]
+
+
+@pytest.mark.parametrize("log_n", [1, 5, 9, 13, 17])
+def test_fold_values_in_leaf_order_on_card(dev, log_n):
+    """The FRI folds' evaluation: K5's rate-0 LDE with a shift equals the
+    coset NTT (K3) followed by the bit-reversal permutation, and the CPU's
+    plain versions."""
+    from plonky2_tpu_torch.utils.bits import bit_reverse_indices
+    coeffs = _rand((2, 1 << log_n), log_n, dev)
+    shift = pow(7, 1 << 12, P)
+    perm = torch.from_numpy(bit_reverse_indices(1 << log_n)).to(dev)
+    got = tntt.lde_coset_ntt_bitrev(coeffs, 0, shift)
+    _equal(got, tntt.coset_ntt(coeffs, shift)[:, perm])
+    _equal(got, tntt.lde_coset_ntt_bitrev(coeffs.cpu(), 0, shift))
+
+
+def test_prove_on_card_matches_cpu(dev):
+    """The whole proof (phases 2-8) at the flagship widths and program and
+    a small degree: the card's proof equals the CPU's, number for number."""
+    import dataclasses
+
+    from plonky2_tpu_torch.fri.config import FriConfig, FriReductionStrategy
+    from plonky2_tpu_torch.plonk.prover import prove
+    from plonky2_tpu_torch.plonk.prover_data import ProverData
+    prog, shape = cp.load(FLAGSHIP_NPZ)
+    shape = dataclasses.replace(shape, degree_bits=8, cap_height=2)
+    n = shape.degree
+    rng = np.random.default_rng(7)
+    draw = lambda rows: rng.integers(0, P, size=(rows, n),  # noqa: E731
+                                     dtype=np.uint64)
+    fri = FriConfig(3, 2, 8, FriReductionStrategy.ConstantArityBits(4, 1),
+                    8).fri_params(8, False)
+    assert fri.reduction_arity_bits == (4, 4)
+    data = ProverData(
+        shape=shape,
+        num_constants=shape.num_preprocessed_polys - shape.num_routed_wires,
+        fri_params=fri, program=prog,
+        cs_coeffs=draw(shape.num_preprocessed_polys),
+        sigmas=draw(shape.num_routed_wires), circuit_digest=(1, 2, 3, 4),
+        public_input_wires=((0, 0), (5, 9)))
+    witness = draw(shape.num_wires)
+    card = prove(data, witness, device=dev)
+    cpu = prove(data, witness, device="cpu")
+    a, b = card.proof.opening_proof, cpu.proof.opening_proof
+    assert a.pow_witness == b.pow_witness
+    np.testing.assert_array_equal(a.final_poly, b.final_poly)
+    for x, y in zip(a.commit_phase_merkle_caps, b.commit_phase_merkle_caps):
+        np.testing.assert_array_equal(x.digests, y.digests)
+    for name in ("wires", "plonk_zs_next", "quotient_polys"):
+        np.testing.assert_array_equal(getattr(card.proof.openings, name),
+                                      getattr(cpu.proof.openings, name))
+    for ra, rb in zip(a.query_round_proofs, b.query_round_proofs):
+        for (va, pa), (vb, pb) in zip(ra.initial_trees_proof.evals_proofs,
+                                      rb.initial_trees_proof.evals_proofs):
+            np.testing.assert_array_equal(va, vb)
+            np.testing.assert_array_equal(pa.siblings, pb.siblings)
+        for sa, sb in zip(ra.steps, rb.steps):
+            np.testing.assert_array_equal(sa.evals, sb.evals)
+            np.testing.assert_array_equal(sa.merkle_proof.siblings,
+                                          sb.merkle_proof.siblings)
