@@ -87,6 +87,10 @@ REDUCED_LOG_N = 10              # the card-vs-CPU proof
 CHECK_POINTS = 8
 CHUNK_SWEEP = [1 << k for k in range(15, 22)]
 CHECK_LANES = 4096
+# K2's narrow top of a 2^21-leaf tree with cap 4: the 11 levels of 2^14
+# down to 16 parents (phase 3b)
+NARROW_LEVELS = 11
+NARROW_REPS = 5
 
 # Published H100 SXM peaks (NVIDIA data sheet; CUDA C Programming Guide,
 # arithmetic instruction throughput for compute capability 9.0: 64 32-bit
@@ -142,6 +146,8 @@ KERNELS = {
                         "plonky2_tpu_torch/csrc/poseidon.cu"),
     "plk_compress_level": ("K2", "compress_level",
                            "plonky2_tpu_torch/csrc/poseidon.cu"),
+    "plk_compress_tail": ("K2", "compress_tail (narrow top, one launch)",
+                          "plonky2_tpu_torch/csrc/poseidon.cu"),
     "plk_ntt_cols_dit": ("K3", "ntt_cols", NTT_CU),
     "plk_ntt_rows_dit": ("K3", "ntt_rows (stored transposed)", NTT_CU),
     "plk_ntt_cols_zero_tail": ("K4", "ntt_cols_zero_tail", NTT_CU),
@@ -151,8 +157,9 @@ KERNELS = {
                                "plonky2_tpu_torch/csrc/constraint_program.cu"),
 }
 # the kernels each main path runs
-COMMIT_PATH = ("plk_hash_leaves", "plk_compress_level", "plk_ntt_cols_dit",
-               "plk_ntt_rows_dit", "plk_ntt_cols_dif", "plk_ntt_rows_dif")
+COMMIT_PATH = ("plk_hash_leaves", "plk_compress_level", "plk_compress_tail",
+               "plk_ntt_cols_dit", "plk_ntt_rows_dit", "plk_ntt_cols_dif",
+               "plk_ntt_rows_dif")
 QUOTIENT_PATH = tuple(KERNELS)
 OPENING_PATH = COMMIT_PATH
 # a proof does not run K4: the quotient gathers its inputs from the
@@ -206,6 +213,14 @@ def boundary_field(rng, shape, dev):
     from plonky2_tpu_torch.field.convert import from_u64
     vals = np.array(BOUNDARY, dtype=np.uint64)
     return from_u64(vals[rng.integers(0, len(vals), size=shape)], dev)
+
+
+def flat(x):
+    """A tensor, or a list of tensors (K2's narrow top) as one."""
+    import torch
+    if isinstance(x, list):
+        return torch.cat([t.reshape(-1) for t in x])
+    return x
 
 
 def max_abs_err(a, b) -> int:
@@ -280,6 +295,11 @@ def launch_cost(name: str, args) -> tuple:
     if name == "plk_compress_level":
         m = a["m"]
         return 8 * (8 * m + 4 * m), m * PERM_MULS, m * PERM_FP64_FMAS
+    if name == "plk_compress_tail":
+        # its first level's children in, every level's parents out
+        parents = tail_parents(a["m0"], a["n_levels"])
+        return (8 * (8 * a["m0"] + 4 * parents), parents * PERM_MULS,
+                parents * PERM_FP64_FMAS)
     if name == "plk_constraint_program":
         # the linear form's 64x64 products on every lane; the input rows it
         # reads read once and its outputs written once, plus its op stream,
@@ -318,6 +338,11 @@ def launch_cost(name: str, args) -> tuple:
     muls = B * n2 * ((n1 // 2) * log_q + (n1 - (1 << log_q))
                      + (q if pre else 0) + (n1 if post else 0))
     return nbytes, muls * FIELD_MUL_MULS, 0
+
+
+def tail_parents(m0: int, n_levels: int) -> int:
+    """The nodes (permutations) of K2's narrow top from m0 parents."""
+    return sum(m0 >> k for k in range(n_levels))
 
 
 @functools.lru_cache(maxsize=1)
@@ -369,8 +394,9 @@ def phase_kernels(dev) -> dict:
 
     def compare(entry, what, kernel_fn, plain_fn, timed=False):
         k_ms, got = cuda_ms(kernel_fn)
-        p_ms, want = cuda_ms(plain_fn, warmup=False)
-        err = max_abs_err(got, want)
+        # the plain version's time after a warm-up call where it is kept
+        p_ms, want = cuda_ms(plain_fn, warmup=timed)
+        err = max_abs_err(flat(got), flat(want))
         log(f"  {kernel_label(entry)} {what}: max_abs_err {err} "
             f"(kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms)")
         check(err == 0, f"{entry} {what} differs from its plain version")
@@ -394,6 +420,25 @@ def phase_kernels(dev) -> dict:
         compare("plk_compress_level", label,
                 lambda: pc.compress_level_cuda(level),
                 lambda: pc.compress_level(level), timed="digests" in label)
+    # K2's narrow top: a 2^21-leaf tree's 11 levels from 2^14 parents to the
+    # cap of 16, the same to one root, a 2^5-leaf tree from its digests
+    # (FRI layer 3), and 2^16 parents (more nodes than the grid holds)
+    digests32 = pc.hash_leaves_cols_cuda(rand_field(rng, (32, 32), dev))
+    for label, level, n_levels in (
+            ("m0=2^14, 11 levels to cap 4", rand_field(rng, (4, 1 << 15), dev),
+             11),
+            ("m0=2^14 boundary, 15 levels to cap 0",
+             boundary_field(rng, (4, 1 << 15), dev), 15),
+            ("2^5 leaf digests, 5 levels to cap 0", digests32, 5),
+            ("2^5 leaf digests, 1 level to cap 4", digests32, 1),
+            ("2^5 boundary digests, 3 levels to cap 2",
+             boundary_field(rng, (4, 32), dev), 3),
+            ("m0=2^16, 13 levels to cap 4", rand_field(rng, (4, 1 << 17), dev),
+             13)):
+        compare("plk_compress_tail", label,
+                lambda: pc.compress_tail_cuda(level, n_levels),
+                lambda: pc.compress_tail(level, n_levels),
+                timed=label.startswith("m0=2^14, 11"))
     # the column forms at the main paths' n1 (512 for the IFFT, 1024 for
     # the LDE and the 2^21-point INTT) and a small one
     for n1, n2 in ((512, 512), (1024, 2048), (2048, 512), (16, 8)):
@@ -495,6 +540,99 @@ def phase_kernels(dev) -> dict:
     return res
 
 
+def phase_narrow_levels(dev) -> dict:
+    """K2 on the narrow top of a 2^21-leaf tree (cap 4: the 11 levels of
+    2^14 down to 16 parents), old path against new in one call.  The
+    steps are timed with CUDA events between consecutive steps, either
+    queued behind K1 on the flagship's (234, 2^18) leaves, so that the host
+    has queued them all before the card reaches them and the events read
+    device time only, or host-paced, on an idle card, as a path without a
+    long kernel ahead meets them.  Also 64 launches at 32 parents behind
+    K1 (per launch: one permutation's latency in one warp and a launch
+    gap), and the threshold: the 13 levels above a (4, 2^17) level with
+    the levels of more than T parents one launch each and the rest one
+    narrow top, for T = 2^13 .. 2^16.  Medians of NARROW_REPS runs."""
+    import torch
+    from plonky2_tpu_torch.hash import poseidon_cuda as pc
+    rng = np.random.default_rng(SEED + 4)
+    leaves = rand_field(rng, (NUM_POLYS, 1 << LOG_N), dev)
+    wide = rand_field(rng, (4, 1 << 17), dev)
+    top = pc.compress_level_cuda(pc.compress_level_cuda(wide))   # (4, 2^15)
+    small = rand_field(rng, (4, 64), dev)
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def timed_steps(make_steps, behind):
+        """Median over NARROW_REPS of each step's ms."""
+        runs = []
+        for _ in range(NARROW_REPS):
+            steps = make_steps()
+            torch.cuda.synchronize()
+            if behind:
+                k0 = event()
+                pc.hash_leaves_cols_cuda(leaves)
+            evs = [event()]
+            t = time.perf_counter()
+            for fn in steps:
+                fn()
+                evs.append(event())
+            host_ms = (time.perf_counter() - t) * 1e3
+            torch.cuda.synchronize()
+            if behind:
+                k1_ms = k0.elapsed_time(evs[0])
+                check(host_ms < k1_ms, f"the host took {host_ms:.3f} ms to "
+                      f"queue the steps, K1 ran {k1_ms:.3f} ms")
+            runs.append([a.elapsed_time(b) for a, b in zip(evs, evs[1:])])
+        return [float(np.median(col)) for col in zip(*runs)]
+
+    def levels(x, n_wide, n_tail):
+        """(steps, cur): n_wide per-level launches, then one narrow top;
+        cur collects x and the levels."""
+        cur = [x]
+        steps = [lambda: cur.append(pc.compress_level_cuda(cur[-1]))] * n_wide
+        if n_tail:
+            steps.append(lambda: cur.extend(pc.compress_tail_cuda(cur[-1],
+                                                                  n_tail)))
+        return steps, cur
+
+    res = {}
+    for mode, behind in (("device", True), ("host-paced", False)):
+        old = timed_steps(lambda: levels(top, NARROW_LEVELS, 0)[0], behind)
+        new = timed_steps(lambda: levels(top, 0, NARROW_LEVELS)[0], behind)
+        res[mode] = {"per_level_ms": old, "per_level_sum_ms": sum(old),
+                     "tail_ms": new[0]}
+        log(f"  {mode}: the 11 narrow levels one launch each: "
+            f"{', '.join(f'{x:.4f}' for x in old)} ms (sum {sum(old):.4f}); "
+            f"in one narrow-top launch: {new[0]:.4f} ms")
+    m32 = timed_steps(lambda: [lambda: pc.compress_level_cuda(small)] * 64,
+                      True)
+    res["m32_launch_ms"] = sum(m32) / 64
+    log(f"  64 launches of 32 parents behind K1: {sum(m32):.4f} ms, "
+        f"{res['m32_launch_ms']:.4f} ms a launch")
+    res["threshold"] = {}
+    for log_t in (13, 14, 15, 16):
+        n_tail = log_t - CAP_HEIGHT + 1
+        row = {}
+        for mode, behind in (("device", True), ("host-paced", False)):
+            row[mode] = sum(timed_steps(
+                lambda: levels(wide, 13 - n_tail, n_tail)[0], behind))
+        res["threshold"][f"2^{log_t}"] = row
+        log(f"  T = 2^{log_t}: {13 - n_tail} per-level launch(es) + a narrow "
+            f"top of {n_tail} levels above (4, 2^17): device "
+            f"{row['device']:.4f} ms, host-paced {row['host-paced']:.4f} ms")
+    steps, want = levels(top, NARROW_LEVELS, 0)
+    for fn in steps:
+        fn()
+    got = pc.compress_tail_cuda(top, NARROW_LEVELS)
+    check(max_abs_err(flat(got), flat(want[1:])) == 0,
+          "the narrow top differs from the per-level launches")
+    log("  the narrow top equals the 11 per-level launches word for word")
+    return res
+
+
 def wrappers() -> dict:
     """C entry -> the wrapper that launches it (and counts launches)."""
     from plonky2_tpu_torch.hash import poseidon_cuda as pc
@@ -502,6 +640,7 @@ def wrappers() -> dict:
     from plonky2_tpu_torch.plonk import constraint_program_cuda as cpc
     return {"plk_hash_leaves": pc.hash_leaves_cols_cuda,
             "plk_compress_level": pc.compress_level_cuda,
+            "plk_compress_tail": pc.compress_tail_cuda,
             "plk_ntt_cols_dit": nc.ntt_cols_cuda,
             "plk_ntt_rows_dit": nc.ntt_rows_cuda,
             "plk_ntt_cols_zero_tail": nc.ntt_cols_zero_tail_cuda,
@@ -519,11 +658,27 @@ def read_launch_counts() -> dict:
     return {entry: w.launches for entry, w in wrappers().items()}
 
 
+@contextlib.contextmanager
+def per_level_merkle():
+    """Every Merkle level on its own launch of K2's per-level form, as
+    before the narrow top had a kernel of its own: the before side of K2's
+    before and after."""
+    from plonky2_tpu_torch.hash import merkle_torch
+    saved = merkle_torch.TAIL_PARENTS
+    merkle_torch.TAIL_PARENTS = 0
+    try:
+        yield
+    finally:
+        merkle_torch.TAIL_PARENTS = saved
+
+
 def timed_path(run, path, label, keep=lambda out: None):
     """One cold run of a main path with the launch counts set to 0 just
-    before and read just after, then WARM_RUNS warm runs timed per kernel.
-    `run(kept)` gets what `keep` takes from the previous run's result
-    (None at first); the rest of that result is freed first."""
+    before and read just after, then WARM_RUNS warm runs timed per kernel,
+    each after one warm run with every Merkle level on K2's per-level form
+    (K2 before and after in turns).  `run(kept)` gets what `keep` takes
+    from the previous run's result (None at first); the rest of that
+    result is freed first.  The result returned is the last run's."""
     import torch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -540,8 +695,18 @@ def timed_path(run, path, label, keep=lambda out: None):
         " GiB of it held by earlier phases)")
     for entry in path:
         check(launches[entry] > 0, f"{entry} was not launched on the {label}")
-    warm_s, per_kernel, recs = [], [], None
+    warm_s, per_kernel, recs, before = [], [], None, []
     for _ in range(WARM_RUNS):
+        kept = keep(out)
+        del out
+        with per_level_merkle(), KernelRecorder() as rec:
+            t = time.perf_counter()
+            out = run(kept)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        k2 = [s.elapsed_time(e) for n, _, s, e in rec.records
+              if n.startswith("plk_compress")]
+        before.append((wall, sum(k2), len(k2)))
         kept = keep(out)
         del out
         with KernelRecorder() as rec:
@@ -553,6 +718,15 @@ def timed_path(run, path, label, keep=lambda out: None):
         recs = rec.records
     log(f"  {label} warm runs (s): {', '.join(f'{s:.4f}' for s in warm_s)}"
         f" (median {np.median(warm_s):.4f}; cold {cold_s:.3f})")
+    k2_after = [sum(r[k] for k in r if k.startswith("plk_compress"))
+                for r in per_kernel]
+    k2_before = {"warm_s": [b[0] for b in before],
+                 "k2_ms": [b[1] for b in before], "launches": before[0][2]}
+    n_after = launches["plk_compress_level"] + launches["plk_compress_tail"]
+    log(f"  {label} K2 before (every level its own launch, {before[0][2]} "
+        f"launches): {', '.join(f'{b[1]:.3f}' for b in before)} ms, warm "
+        f"runs {', '.join(f'{b[0]:.4f}' for b in before)} s; after "
+        f"({n_after} launches): {', '.join(f'{x:.3f}' for x in k2_after)} ms")
     kernel_ms = {k: float(np.median([r[k] for r in per_kernel]))
                  for k in per_kernel[0]}
     for k, ms in kernel_ms.items():
@@ -567,7 +741,7 @@ def timed_path(run, path, label, keep=lambda out: None):
     last_run = [(name, args, s.elapsed_time(e)) for name, args, s, e in recs]
     return out, {"cold_s": cold_s, "warm_s": warm_s, "launches": launches,
                  "kernel_ms": kernel_ms, "cost": cost, "peak_bytes": peak,
-                 "resident_bytes": resident,
+                 "resident_bytes": resident, "k2_before": k2_before,
                  "last_run": last_run}
 
 
@@ -575,25 +749,38 @@ def log_merkle_levels(res) -> dict:
     """K2 launch by launch in the last warm run, beside the time its
     permutations would take at the rate K1 reached in the same run (K1 and
     K2 share the permutation): what is left is K2's own, the launches and
-    the small levels that cannot fill the card."""
+    the levels too small to fill the card.  A narrow top (one launch)
+    shows its levels' parents together."""
     from plonky2_tpu_torch.kernels import named_args
     k1_perms = sum(launch_cost(n, a)[1] for n, a, _ in res["last_run"]
                    if n == "plk_hash_leaves") / PERM_MULS
     k1_ms = sum(ms for n, _, ms in res["last_run"] if n == "plk_hash_leaves")
     ns_per_perm = k1_ms * 1e6 / k1_perms
-    levels = [(named_args(n, a)["m"], ms) for n, a, ms in res["last_run"]
-              if n == "plk_compress_level"]
-    total = sum(ms for _, ms in levels)
-    perm_ms = sum(m for m, _ in levels) * ns_per_perm / 1e6
-    for m, ms in levels:
-        log(f"  K2 level of {m} parents: {ms:.4f} ms (its permutations at "
-            f"K1's rate: {m * ns_per_perm / 1e6:.4f} ms)")
-    log(f"  K2: {len(levels)} launches, {total:.3f} ms; permutations at K1's "
-        f"{ns_per_perm:.3f} ns each: {perm_ms:.3f} ms; K2's own: "
-        f"{total - perm_ms:.3f} ms")
-    return {"launches": len(levels), "ms": total, "perm_ms": perm_ms,
-            "ns_per_perm": ns_per_perm,
-            "levels": [[m, ms] for m, ms in levels]}
+    levels, tails = [], []
+    for n, a, ms in res["last_run"]:
+        a = named_args(n, a) if n.startswith("plk_compress") else None
+        if n == "plk_compress_level":
+            levels.append([a["m"], ms])
+            log(f"  K2 level of {a['m']} parents: {ms:.4f} ms (its "
+                f"permutations at K1's rate: "
+                f"{a['m'] * ns_per_perm / 1e6:.4f} ms)")
+        elif n == "plk_compress_tail":
+            m0, k = a["m0"], a["n_levels"]
+            parents = tail_parents(m0, k)
+            tails.append([m0, k, parents, ms])
+            log(f"  K2 narrow top, {k} levels of {m0} down to "
+                f"{m0 >> (k - 1)} parents ({parents} permutations) in one "
+                f"launch: {ms:.4f} ms (its permutations at K1's rate: "
+                f"{parents * ns_per_perm / 1e6:.4f} ms)")
+    total = sum(x[-1] for x in levels + tails)
+    perm_ms = (sum(m for m, _ in levels) + sum(t[2] for t in tails)) \
+        * ns_per_perm / 1e6
+    log(f"  K2: {len(levels) + len(tails)} launches ({len(tails)} narrow "
+        f"tops), {total:.3f} ms; permutations at K1's {ns_per_perm:.3f} ns "
+        f"each: {perm_ms:.3f} ms; K2's own: {total - perm_ms:.3f} ms")
+    return {"launches": len(levels) + len(tails), "ms": total,
+            "perm_ms": perm_ms, "ns_per_perm": ns_per_perm,
+            "levels": levels, "tails": tails}
 
 
 def phase_full_width(dev, rng):
@@ -1417,7 +1604,11 @@ def kernels_line(kern, paths, smi) -> dict:
                           "launches_by_path": f_launches,
                           "ms_by_path": f_ms, "ms": sum(f_ms.values()),
                           "bound_ms": f_bound, "bound_by": f_by,
-                          "max_abs_err": kern[entry]["max_abs_err"]})
+                          "max_abs_err": kern[entry]["max_abs_err"],
+                          **{k: kern[entry][k] for k in (
+                              "plain_ms", "plain_shape",
+                              "kernel_ms_at_plain_shape")
+                             if k in kern[entry]}})
         timed = next(kern[e] for e in entries if "plain_ms" in kern[e])
         bound_ms, bound_by = bound(*cost)
         out.append({
@@ -1448,6 +1639,8 @@ def main() -> int:
         phase_build()
     with phase("3 kernels vs plain (reduced shapes, exact)"):
         kern = phase_kernels(dev)
+    with phase("3b K2's narrow levels: device time, host pace, one launch"):
+        narrow = phase_narrow_levels(dev)
     rng = np.random.default_rng(SEED)
     with phase(f"4 full width ({NUM_POLYS} x 2^{LOG_N}, rate {RATE_BITS}, "
                f"cap {CAP_HEIGHT})"):
@@ -1468,12 +1661,13 @@ def main() -> int:
              "prove": proved}
     with phase("10 kernels line"):
         line = kernels_line(kern, paths, smi)
+        line["narrow_levels"] = narrow
         line["paths"] = {
             k: {f: p[f] for f in ("cold_s", "warm_s", "peak_bytes",
                                   "resident_bytes", "profile") if f in p}
             for k, p in paths.items()}
         for k, p in paths.items():
-            for f in ("stages_ms", "merkle_levels", "host"):
+            for f in ("stages_ms", "merkle_levels", "host", "k2_before"):
                 if f in p:
                     line["paths"][k][f] = p[f]
     with phase("11 int32 multiply rate and field-product SASS"):

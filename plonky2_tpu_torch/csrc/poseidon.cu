@@ -1,23 +1,26 @@
-// Kernels K1 and K2: the Poseidon-12 leaf sponge and one Merkle level.
+// Kernels K1 and K2: the Poseidon-12 leaf sponge and the Merkle levels.
 //
 // K1 replaces plonky2_tpu/hash/poseidon_pallas.py:hash_leaves_cols_pallas,
-// K2 replaces plonky2_tpu/hash/poseidon_pallas.py:compress_pairs_cols_pallas.
+// K2 replaces plonky2_tpu/hash/poseidon_pallas.py:compress_pairs_cols_pallas
+// in two forms: one launch a wide level (compress_level_kernel) and one
+// launch for the narrow top of a tree (compress_tail_kernel, below).
 // They compute what those compute (rate-8 overwrite absorb, 4 + 22 + 4
 // rounds, x^7, circulant + diagonal MDS, canonical digest), not how: the
 // TPU's int8 MXU planes and lane tiles have no counterpart here.
 //
-// Bound on an H100: integer operations.  A permutation needs ~4.1k 32x32
-// products on the integer pipe and 2.3k float64 multiply-adds (the full
-// rounds' MDS) on the FP64 pipe, on the fast partial-round schedule, which
-// this kernel runs as the TPU kernel and plonky2_tpu/hash/poseidon.py:
-// poseidon_ints do: 4 full rounds; the first partial-round constant and
-// the dense 11x11 initial matrix; 22 partial rounds, each an S-box on s[0]
-// and a sparse layer (d = 25 s0 + sum w_hat[r][i] s[i],
-// s[i] += s0 v[r][i]); 4 full rounds.  That is far above the card's int32
-// rate per byte of HBM, so memory is not the limit.
+// Bound on an H100 (K1, and K2 on a wide level): integer operations.  A
+// permutation needs ~4.1k 32x32 products on the integer pipe and 2.3k
+// float64 multiply-adds (the full rounds' MDS) on the FP64 pipe, on the
+// fast partial-round schedule, which this kernel runs as the TPU kernel
+// and plonky2_tpu/hash/poseidon.py:poseidon_ints do: 4 full rounds; the
+// first partial-round constant and the dense 11x11 initial matrix; 22
+// partial rounds, each an S-box on s[0] and a sparse layer (d = 25 s0 +
+// sum w_hat[r][i] s[i], s[i] += s0 v[r][i]); 4 full rounds.  That is far
+// above the card's int32 rate per byte of HBM, so memory is not the limit.
 //
-// Design: one thread per leaf (K1) or node (K2); the 12-word state lives in
-// registers; all tables sit in __constant__ memory (every thread of a warp
+// Design: one thread per leaf (K1) or node (K2 on a wide level; the narrow
+// top's design is below); the 12-word state lives in registers; all
+// tables sit in __constant__ memory (every thread of a warp
 // reads the same word); a leaf's L words are a column of the (L, N)
 // matrix, so neighbouring threads load neighbouring addresses.  A thread
 // has many independent products in flight (twelve S-boxes a full round,
@@ -29,6 +32,7 @@
 // __launch_bounds__(128, 1) lets a thread take 255 registers (two blocks
 // an SM); without the 1, or with 3 (168 registers), ptxas spills and the
 // kernel runs 9-17% slower (PERF.md).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "goldilocks.cuh"
@@ -229,6 +233,244 @@ compress_level_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ ou
   for (int j = 0; j < 4; j++) out[j * m + i] = gl::canon(s[j]);
 }
 
+
+// ---------------------------------------------------------------------------
+// K2's narrow top: every level from m0 parents down to the cap in one launch.
+//
+// Bound: latency, not operations.  A level of m <= 2^14 parents is a few
+// thousand permutations, far too few to fill the card, so a level takes as
+// long as one permutation's dependent chain, and the levels depend on each
+// other.  One thread a node (compress_level_kernel) takes ~0.049 ms a level
+// on an H100, device time, whether m is 32 or 2^14 (PERF.md, K2).
+//
+// Design: (1) one persistent cooperative launch walks all the levels, a
+// grid-wide barrier between two levels (no launch gap, no host between
+// them); the grid is as many blocks as fit the card at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), fewer when the widest
+// level needs fewer, and a grid-stride loop covers the rest.  (2) One
+// permutation is split across a group of TAIL_LANES (g) lanes of a warp:
+// lane l keeps state words l, l + g, l + 2g, ...  A full round runs each
+// lane's own S-boxes, gathers the other words with __shfl_sync and
+// computes the lane's own rows of the float64 MDS.  A partial round keeps
+// s0 in every lane: each lane sums its own w_hat terms into a 160-bit Dot,
+// the group merges the Dots with an xor butterfly of limb shuffles (added
+// with carries, reduced once), and every lane runs the S-box on s0 itself,
+// so no broadcast sits on the chain.  The w_hat sums and their merge do
+// not depend on the round's S-box and overlap it.  The S-boxes take K1's
+// forms (the latency forms, mul_nc, measured 6% slower).  Tables indexed
+// by a lane's own word sit in shared memory, word index fastest, so a
+// warp's lanes read distinct banks (__constant__ would serialize distinct
+// addresses).  Each level reads its input through L2 (ld.global.cg): other
+// blocks wrote it in this launch.  tests/test_torch_poseidon.py models this
+// schedule (lanes as an array axis, shuffles as gathers) against
+// permute_ints.
+//
+// Measured on an H100 at 700 W (PERF.md, K2; scripts/
+// port_merkle_tail_variants.py, chip_smoke.py phase 3b): a 2^21-leaf
+// tree's 11 levels of 2^14 down to 16 parents take 0.36 ms here against
+// 0.56 ms as 11 launches.  g = 4 over those 11 levels: 0.360 ms; g = 2
+// 0.377; g = 16 0.516 (one level of 16-2^10 parents 0.023 ms against g =
+// 4's 0.029, but 2^13 and 2^14 parents need 16 lanes a node and take 0.10
+// and 0.15 ms).  A lone g = 4 permutation is ~36k cycles (clock64), 67% of
+// them the 22 partial rounds, whose S-box and reduction form one serial
+// chain.  Block barriers in place of the grid barriers on the top six
+// levels gain nothing (0.3600 against 0.3606 ms).  T = 2^14
+// (hash/merkle_torch.py:TAIL_PARENTS) against 2^15 and 2^16: 0.57, 0.59
+// and 0.63 ms for the 13 levels above 2^17 nodes.
+constexpr int TAIL_LANES = 4;
+constexpr int TAIL_THREADS = 128;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+struct TailTables {
+  uint64_t rc[8][WIDTH];       // full rounds 0-3 and 26-29
+  double mds[WIDTH][WIDTH];    // [c][r] = M[r][c]
+  uint64_t first[WIDTH];
+  uint64_t init[11][11];       // [r - 1][c - 1], as PLK_FAST_INIT
+  uint64_t what[22][11];       // [round][i - 1]
+  uint64_t vs[22][11];
+};
+
+__device__ void load_tail_tables(TailTables& t) {
+  for (int i = threadIdx.x; i < 8 * WIDTH; i += blockDim.x) {
+    const int r = i / WIDTH;
+    t.rc[r][i % WIDTH] = PLK_RC[(r < 4 ? r : r + 22) * WIDTH + i % WIDTH];
+  }
+  for (int i = threadIdx.x; i < WIDTH * WIDTH; i += blockDim.x)
+    t.mds[i % WIDTH][i / WIDTH] = PLK_MDS_F64[i];
+  for (int i = threadIdx.x; i < WIDTH; i += blockDim.x) t.first[i] = PLK_FAST_FIRST[i];
+  for (int i = threadIdx.x; i < 121; i += blockDim.x) t.init[i / 11][i % 11] = PLK_FAST_INIT[i];
+  for (int i = threadIdx.x; i < 242; i += blockDim.x) {
+    t.what[i / 11][i % 11] = PLK_FAST_WHAT[i];
+    t.vs[i / 11][i % 11] = PLK_FAST_VS[i];
+  }
+}
+
+// d += e, both 160-bit Dots (the sum of a node's products stays below 2^133).
+__device__ __forceinline__ void dot_merge(Dot& d, const uint32_t e[5]) {
+  asm("add.cc.u32 %0, %0, %5;\n\t"
+      "addc.cc.u32 %1, %1, %6;\n\t"
+      "addc.cc.u32 %2, %2, %7;\n\t"
+      "addc.cc.u32 %3, %3, %8;\n\t"
+      "addc.u32 %4, %4, %9;"
+      : "+r"(d.w[0]), "+r"(d.w[1]), "+r"(d.w[2]), "+r"(d.w[3]), "+r"(d.w[4])
+      : "r"(e[0]), "r"(e[1]), "r"(e[2]), "r"(e[3]), "r"(e[4]));
+}
+
+// The permutation of one state spread over a group of G lanes: slot k of
+// lane l holds word l + G k (K slots; words past 11 are unused).
+template <int G>
+struct LaneState {
+  static constexpr int K = (WIDTH + G - 1) / G;
+  uint64_t s[K];
+};
+
+template <int G>
+__device__ __forceinline__ uint64_t group_word(const LaneState<G>& st, int w) {
+  return __shfl_sync(FULL_MASK, st.s[w / G], w % G, G);
+}
+
+template <int G>
+__device__ __forceinline__ void full_round_lanes(LaneState<G>& st, int lane, int r,
+                                                 const TailTables& t) {
+  constexpr int K = LaneState<G>::K;
+#pragma unroll
+  for (int k = 0; k < K; k++) {
+    const int w = lane + G * k;
+    if (w < WIDTH) st.s[k] = sbox(gl::add_nc(st.s[k], t.rc[r][w]));
+  }
+  double lo[WIDTH], hi[WIDTH];
+#pragma unroll
+  for (int c = 0; c < WIDTH; c++) {
+    const uint64_t x = group_word(st, c);
+    lo[c] = u32_to_f64((uint32_t)x);
+    hi[c] = u32_to_f64((uint32_t)(x >> 32));
+  }
+#pragma unroll
+  for (int k = 0; k < K; k++) {
+    const int w = lane + G * k;
+    if (w < WIDTH) {
+      double al = 0, ah = 0;
+#pragma unroll
+      for (int c = 0; c < WIDTH; c++) {
+        al = fma(t.mds[c][w], lo[c], al);
+        ah = fma(t.mds[c][w], hi[c], ah);
+      }
+      st.s[k] = mds_combine(f64_to_u64(al), f64_to_u64(ah));
+    }
+  }
+}
+
+template <int G>
+__device__ void permute_lanes(LaneState<G>& st, int lane, const TailTables& t) {
+  constexpr int K = LaneState<G>::K;
+#pragma unroll 1
+  for (int r = 0; r < 4; r++) full_round_lanes(st, lane, r, t);
+  // first partial-round constant, then the initial matrix over words 1-11
+#pragma unroll
+  for (int k = 0; k < K; k++) {
+    const int w = lane + G * k;
+    if (w < WIDTH) st.s[k] = gl::add_nc(st.s[k], t.first[w]);
+  }
+  uint64_t x[WIDTH];
+#pragma unroll
+  for (int c = 0; c < WIDTH; c++) x[c] = group_word(st, c);
+#pragma unroll
+  for (int k = 0; k < K; k++) {
+    const int w = lane + G * k;
+    if (w > 0 && w < WIDTH) {
+      Dot d;
+      dot_init(d, 0, 0);
+#pragma unroll
+      for (int i = 1; i < WIDTH; i++) dot_add(d, x[i], t.init[i - 1][w - 1]);
+      st.s[k] = dot_reduce(d);
+    }
+  }
+  uint64_t s0 = x[0];  // every lane keeps s0 through the partial rounds
+#pragma unroll 1
+  for (int r = 0; r < 22; r++) {
+    Dot d;
+    dot_init(d, 0, 0);
+#pragma unroll
+    for (int k = 0; k < K; k++) {
+      const int w = lane + G * k;
+      if (w > 0 && w < WIDTH) dot_add(d, st.s[k], t.what[r][w - 1]);
+    }
+#pragma unroll
+    for (int o = 1; o < G; o <<= 1) {
+      uint32_t e[5];
+#pragma unroll
+      for (int j = 0; j < 5; j++) e[j] = __shfl_xor_sync(FULL_MASK, d.w[j], o, G);
+      dot_merge(d, e);
+    }
+    // the constant after the S-box is 0 in the last round
+    const uint64_t x0 = gl::add_nc(sbox(s0), PLK_FAST_PRC[r]);
+    uint64_t lo, hi;
+    gl::mul_wide(x0, PLK_FAST_MS0, lo, hi);
+    uint32_t e[5] = {(uint32_t)lo, (uint32_t)(lo >> 32), (uint32_t)hi, (uint32_t)(hi >> 32), 0};
+    dot_merge(d, e);
+#pragma unroll
+    for (int k = 0; k < K; k++) {
+      const int w = lane + G * k;
+      if (w > 0 && w < WIDTH) {
+        gl::mul_wide(x0, t.vs[r][w - 1], lo, hi);
+        lo += st.s[k];
+        hi += lo < st.s[k] ? 1 : 0;
+        st.s[k] = gl::reduce128(lo, hi);
+      }
+    }
+    s0 = dot_reduce(d);
+  }
+  if (lane == 0) st.s[0] = s0;
+#pragma unroll 1
+  for (int r = 4; r < 8; r++) full_round_lanes(st, lane, r, t);
+}
+
+// in: (4, 2 m0), node pairs adjacent; out: the n_levels levels of m0,
+// m0 / 2, ... parents, each (4, m) row-major, one after the other.
+template <int G>
+__global__ void __launch_bounds__(TAIL_THREADS, 4)
+compress_tail_kernel(const uint64_t* in, uint64_t* out, int64_t m0, int n_levels) {
+  constexpr int K = LaneState<G>::K;
+  constexpr int NODES_PER_WARP = 32 / G;
+  __shared__ TailTables t;
+  load_tail_tables(t);
+  __syncthreads();
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int lane = threadIdx.x % G;
+  const int group = (threadIdx.x % 32) / G;
+  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int64_t n_warps = (int64_t)gridDim.x * blockDim.x / 32;
+  const uint64_t* src = in;
+  uint64_t* dst = out;
+  int64_t m = m0;
+  for (int level = 0; level < n_levels; level++) {
+    // warp-uniform bounds: every lane of a warp reaches every shuffle
+    for (int64_t base = warp * NODES_PER_WARP; base < m; base += n_warps * NODES_PER_WARP) {
+      const int64_t node = base + group;
+      const int64_t i = node < m ? node : m - 1;
+      LaneState<G> st;
+#pragma unroll
+      for (int k = 0; k < K; k++) {
+        // words 0-3 the left child, 4-7 the right one, 8-11 zero
+        const int w = lane + G * k;
+        st.s[k] = w < 8 ? (uint64_t)__ldcg((const unsigned long long*)(
+                              src + (w & 3) * 2 * m + 2 * i + (w >> 2)))
+                        : 0;
+      }
+      permute_lanes(st, lane, t);
+#pragma unroll
+      for (int k = 0; k < K; k++) {
+        const int w = lane + G * k;
+        if (w < 4 && node < m) dst[w * m + node] = gl::canon(st.s[k]);
+      }
+    }
+    if (level + 1 < n_levels) grid.sync();
+    src = dst;
+    dst += 4 * m;
+    m >>= 1;
+  }
+}
+
 }  // namespace
 
 extern "C" int plk_hash_leaves(const void* in, void* out, long long L, long long N, int device,
@@ -250,6 +492,31 @@ extern "C" int plk_compress_level(const void* in, void* out, long long m, int de
   unsigned blocks = (unsigned)((m + THREADS - 1) / THREADS);
   compress_level_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const uint64_t*)in, (uint64_t*)out, (int64_t)m);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int plk_compress_tail(const void* in, void* out, long long m0, int n_levels, int device,
+                                 void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (m0 == 0 || n_levels == 0) return 0;
+  auto kernel = compress_tail_kernel<TAIL_LANES>;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TAIL_THREADS, 0);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const long long needed = (m0 * TAIL_LANES + TAIL_THREADS - 1) / TAIL_THREADS;
+  const long long resident = (long long)per_sm * sms;
+  if (resident == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const unsigned blocks = (unsigned)(needed < resident ? needed : resident);
+  const uint64_t* a = (const uint64_t*)in;
+  uint64_t* b = (uint64_t*)out;
+  int64_t m = (int64_t)m0;
+  void* args[] = {(void*)&a, (void*)&b, (void*)&m, (void*)&n_levels};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(TAIL_THREADS), args, 0,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

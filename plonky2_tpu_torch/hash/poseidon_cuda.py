@@ -1,9 +1,12 @@
-"""Wrappers for kernels K1 (leaf sponge) and K2 (one Merkle level).
+"""Wrappers for kernels K1 (leaf sponge) and K2 (Merkle levels).
 
 K1 replaces plonky2_tpu/hash/poseidon_pallas.py:hash_leaves_cols_pallas and
-K2 replaces poseidon_pallas.py:compress_pairs_cols_pallas; their CUDA source
-is csrc/poseidon.cu, whose header note gives the bound on an H100 (integer
-operations) and the design.  Each wrapper takes the plain version beside it
+K2 replaces poseidon_pallas.py:compress_pairs_cols_pallas, in two forms: one
+launch a wide level (``compress_level_cuda``) and one launch for the narrow
+top of a tree (``compress_tail_cuda``).  Their CUDA source is
+csrc/poseidon.cu, whose notes give the bounds on an H100 (integer operations
+for K1 and a wide level, the latency of one permutation a level for the
+narrow top) and the designs.  Each wrapper takes the plain version beside it
 (hash/poseidon.py) for a CPU tensor only; a CUDA tensor launches the kernel
 or the call raises.  ``<wrapper>.launches`` counts kernel launches.
 """
@@ -54,3 +57,37 @@ def compress_level_cuda(level: torch.Tensor) -> torch.Tensor:
 
 
 compress_level_cuda.launches = 0
+
+
+def compress_tail(level: torch.Tensor, n_levels: int) -> list:
+    """Plain version of K2's narrow top: n_levels levels above `level`."""
+    out = []
+    for _ in range(n_levels):
+        level = compress_level(level)
+        out.append(level)
+    return out
+
+
+def compress_tail_cuda(level: torch.Tensor, n_levels: int) -> list:
+    """K2's narrow top in one launch: (4, 2 m0) children -> the n_levels
+    levels [(4, m0), (4, m0 / 2), ...], views of one buffer."""
+    kernels.check_field_tensor(level, "level", ndim=2)
+    if (level.shape[0] != 4 or n_levels < 1
+            or level.shape[1] % (1 << n_levels)):
+        raise ValueError(f"level: expected (4, 2m) with 2^{n_levels} "
+                         f"dividing 2m and n_levels >= 1, got "
+                         f"{tuple(level.shape)}")
+    if kernels.on_cpu(level):
+        return compress_tail(level, n_levels)
+    kernels.check_kernel_operand(level, "level", level.device)
+    m0 = level.shape[1] // 2
+    sizes = [m0 >> k for k in range(n_levels)]
+    out = torch.empty(4 * sum(sizes), dtype=torch.int64, device=level.device)
+    kernels.call("plk_compress_tail", level.data_ptr(), out.data_ptr(), m0,
+                 n_levels, level.device.index, kernels.stream_of(level))
+    compress_tail_cuda.launches += 1
+    return [v.view(4, m) for v, m in zip(out.split([4 * m for m in sizes]),
+                                          sizes)]
+
+
+compress_tail_cuda.launches = 0

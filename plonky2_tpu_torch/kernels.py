@@ -40,6 +40,8 @@ SIGNATURES = {
                         ("device", _I), ("stream", _P)),
     "plk_compress_level": (("in", _P), ("out", _P), ("m", _LL),
                            ("device", _I), ("stream", _P)),
+    "plk_compress_tail": (("in", _P), ("out", _P), ("m0", _LL),
+                          ("n_levels", _I), ("device", _I), ("stream", _P)),
     "plk_ntt_cols_dit": (("in", _P), ("out", _P), ("twiddles", _P),
                          ("pre", _P), ("post", _P), ("B", _LL),
                          ("log_n1", _I), ("n2", _LL), ("log_t", _I),

@@ -6,6 +6,8 @@ import shutil
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """
@@ -74,6 +76,8 @@ def test_wrappers_launch_with_declared_signatures(monkeypatch):
     cases = [
         (pc.hash_leaves_cols_cuda, (z((234, 64), dtype=i64),), {}, (4, 64)),
         (pc.compress_level_cuda, (z((4, 64), dtype=i64),), {}, (4, 32)),
+        (pc.compress_tail_cuda, (z((4, 64), dtype=i64), 3), {},
+         [(4, 32), (4, 16), (4, 8)]),
         (nc.ntt_cols_cuda, (z((3, 16, 8), dtype=i64), True),
          {"post": z((16, 8), dtype=i64)}, (3, 16, 8)),
         (nc.ntt_cols_zero_tail_cuda, (z((3, 2, 8), dtype=i64), 3),
@@ -89,7 +93,7 @@ def test_wrappers_launch_with_declared_signatures(monkeypatch):
                                 z((len(prog.bank_sids),), dtype=i64)), {},
          (2, 64)),
     ]
-    shapes = [{"L": 234, "N": 64}, {"m": 32},
+    shapes = [{"L": 234, "N": 64}, {"m": 32}, {"m0": 32, "n_levels": 3},
               {"B": 3, "log_n1": 4, "n2": 8, "pre": None},
               {"B": 3, "rate_bits": 3, "log_n1": 4, "n2": 8},
               {"B": 3, "q": 2, "log_n1": 4, "n2": 8},
@@ -99,7 +103,15 @@ def test_wrappers_launch_with_declared_signatures(monkeypatch):
     for (wrapper, args, kwargs, out_shape), shape in zip(cases, shapes):
         before = wrapper.launches
         out = wrapper(*args, **kwargs)
-        assert tuple(out.shape) == out_shape
+        if isinstance(out, list):
+            # K2's narrow top: its levels are consecutive views of the
+            # buffer the kernel writes
+            assert [tuple(o.shape) for o in out] == out_shape
+            for a, b in zip(out, out[1:]):
+                assert b.data_ptr() == a.data_ptr() + 8 * a.numel()
+            out = out[0]
+        else:
+            assert tuple(out.shape) == out_shape
         assert wrapper.launches == before + 1
         name, cargs = calls[-1]
         named = kernels.named_args(name, cargs)
@@ -108,8 +120,8 @@ def test_wrappers_launch_with_declared_signatures(monkeypatch):
         assert named.get("out", named.get("data")) == out.data_ptr()
     assert [c[0] for c in calls] == list(kernels.SIGNATURES)
     # the zero-tail forms get their factor table, K5 without a tail none
-    assert kernels.named_args(*calls[3])["factors"] is not None
     assert kernels.named_args(*calls[4])["factors"] is not None
+    assert kernels.named_args(*calls[5])["factors"] is not None
     nc.ntt_cols_dif_cuda(z((3, 16, 8), dtype=i64))
     assert kernels.named_args(*calls[-1])["factors"] is None
     a = z((3, 16, 8), dtype=i64)
@@ -126,7 +138,7 @@ def test_wrappers_launch_with_declared_signatures(monkeypatch):
 
 def test_fri_stages_launch_their_kernels(monkeypatch):
     """On a tensor that is not on the CPU, a fold layer's tree goes through
-    K1 and K2, a fold's evaluation in leaf order through K5 (both forms)
+    K1 and K2 (its three levels in one launch), a fold's evaluation in leaf order through K5 (both forms)
     and the composition's coset INTT through K3 (both forms); no plain
     version runs."""
     import torch
@@ -151,13 +163,88 @@ def test_fri_stages_launch_their_kernels(monkeypatch):
     z = lambda *shape: torch.zeros(shape, dtype=torch.int64)  # noqa: E731
     tree = tdp.commit_layer((z(512), z(512)), 16, 2)
     assert tuple(tree.leaves_dev.shape) == (32, 32)
-    assert calls == ["plk_hash_leaves"] + ["plk_compress_level"] * 3
+    assert calls == ["plk_hash_leaves", "plk_compress_tail"]
     calls.clear()
     assert tuple(ntt.lde_coset_ntt_bitrev(z(2, 32), 0, 49).shape) == (2, 32)
     assert calls == ["plk_ntt_cols_dif", "plk_ntt_rows_dif"]
     calls.clear()
     assert tuple(ntt.coset_intt(z(2, 1 << 11)).shape) == (2, 1 << 11)
     assert calls == ["plk_ntt_cols_dit", "plk_ntt_rows_dit"]
+
+
+@pytest.mark.parametrize("L,n,cap,tail_parents,want", [
+    (12, 64, 2, None, ["plk_hash_leaves", "plk_compress_tail"]),
+    (12, 64, 0, 4, ["plk_hash_leaves"] + ["plk_compress_level"] * 3
+     + ["plk_compress_tail"]),
+    (4, 64, 3, 8, ["plk_compress_level"] * 2 + ["plk_compress_tail"]),
+    (4, 64, 4, 8, ["plk_compress_level"] * 2),
+    (12, 64, 6, None, ["plk_hash_leaves"]),
+])
+def test_digest_levels_launch_wide_levels_then_one_tail(
+        monkeypatch, L, n, cap, tail_parents, want):
+    """On a tensor that is not on the CPU, build_digest_levels launches K2
+    once for each level of more than TAIL_PARENTS parents, then once for
+    all the levels above them; no plain version runs."""
+    import torch
+
+    from plonky2_tpu_torch import kernels
+    from plonky2_tpu_torch.hash import merkle_torch
+    from plonky2_tpu_torch.hash import poseidon as pos
+    from plonky2_tpu_torch.hash import poseidon_cuda as pc
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("a plain version ran")
+    for mod, name in ((pos, "hash_leaves_cols"), (pos, "compress_pairs_cols"),
+                      (pc, "compress_level"), (pc, "compress_tail")):
+        monkeypatch.setattr(mod, name, no_plain)
+    calls = []
+    monkeypatch.setattr(kernels, "on_cpu", lambda t: False)
+    monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    monkeypatch.setattr(kernels, "call",
+                        lambda name, *args: calls.append((name, args)))
+    if tail_parents is not None:
+        monkeypatch.setattr(merkle_torch, "TAIL_PARENTS", tail_parents)
+    levels = merkle_torch.build_digest_levels(
+        torch.zeros((L, n), dtype=torch.int64), cap)
+    assert [c[0] for c in calls] == want
+    assert [tuple(x.shape) for x in levels] == [
+        (4, n >> k) for k in range(n.bit_length() - cap)]
+    if want[-1] == "plk_compress_tail":
+        a = kernels.named_args(*calls[-1])
+        assert a["m0"] == min(n >> (len(want) - (L > 4)),
+                              merkle_torch.TAIL_PARENTS)
+        assert a["m0"] >> (a["n_levels"] - 1) == 1 << cap
+        assert a["out"] == levels[len(levels) - a["n_levels"]].data_ptr()
+
+
+def test_refused_tail_launch_raises(monkeypatch):
+    """A launch error of the narrow-top kernel (a cooperative launch the
+    card refuses) raises; the launch is not counted and nothing runs in its
+    place."""
+    import pytest
+    import torch
+
+    from plonky2_tpu_torch import kernels
+    from plonky2_tpu_torch.hash import poseidon_cuda as pc
+
+    class Refusing:
+        @staticmethod
+        def plk_compress_tail(*args):
+            return 82
+
+        @staticmethod
+        def plk_error_string(rc):
+            return b"too many blocks in cooperative launch"
+
+    monkeypatch.setattr(kernels, "on_cpu", lambda t: False)
+    monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    monkeypatch.setattr(kernels, "library", lambda: Refusing)
+    monkeypatch.setattr(pc, "compress_tail", lambda *a: pytest.fail(
+        "the plain version ran"))
+    before = pc.compress_tail_cuda.launches
+    with pytest.raises(RuntimeError, match="cooperative"):
+        pc.compress_tail_cuda(torch.zeros((4, 64), dtype=torch.int64), 2)
+    assert pc.compress_tail_cuda.launches == before
 
 
 def test_ntt_row_forms_raise_instead_of_falling_back(monkeypatch):

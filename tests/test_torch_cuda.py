@@ -62,6 +62,42 @@ def test_compress_level_kernel(dev):
     _equal(pc.compress_level_cuda(level), pc.compress_level(level))
 
 
+@pytest.mark.parametrize("m0,n_levels,boundary", [
+    (1 << 14, 11, False), (1 << 14, 15, True), (16, 5, False), (16, 1, True),
+    (1 << 16, 13, False)])
+def test_compress_tail_kernel(dev, m0, n_levels, boundary):
+    """K2's narrow top in one launch against its plain version: from 2^14
+    parents to a cap of 16 and to one root, a 2^5-leaf tree from its
+    digests, and from 2^16 parents (more nodes than the grid holds at
+    once); boundary values in the inputs where marked."""
+    level = _rand((4, 2 * m0), m0 + n_levels, dev)
+    if boundary:
+        level[:, :m0] = from_u64(BOUNDARY[np.random.default_rng(m0).integers(
+            0, 5, size=(4, m0))], dev)
+    before = pc.compress_tail_cuda.launches
+    got = pc.compress_tail_cuda(level, n_levels)
+    assert pc.compress_tail_cuda.launches == before + 1
+    want = pc.compress_tail(level, n_levels)
+    assert [tuple(g.shape) for g in got] == [tuple(w.shape) for w in want]
+    for g, w in zip(got, want):
+        _equal(g, w)
+
+
+def test_digest_levels_wide_then_tail(dev):
+    """A tree of 2^16 leaves: one wide level (2^15 parents), then the
+    tail, equal to the per-level kernel's levels."""
+    from plonky2_tpu_torch.hash import merkle_torch
+    leaves = _rand((12, 1 << 16), 16, dev)
+    before = (pc.compress_level_cuda.launches, pc.compress_tail_cuda.launches)
+    levels = merkle_torch.build_digest_levels(leaves, 4)
+    assert (pc.compress_level_cuda.launches, pc.compress_tail_cuda.launches) \
+        == (before[0] + 1, before[1] + 1)
+    x = levels[0]
+    for got in levels[1:]:
+        x = pc.compress_level_cuda(x)
+        _equal(got, x)
+
+
 @pytest.mark.parametrize("n1,n2", [(16, 128), (512, 64), (2048, 8),
                                    (8192, 4)])
 def test_ntt_cols_kernel(dev, n1, n2):

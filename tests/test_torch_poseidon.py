@@ -1,7 +1,9 @@
 """The port's plain Poseidon (the plain versions of kernels K1 and K2) and its
 Merkle levels against the JAX package: poseidon_jax (which the JAX package's
 own tests hold bit-identical to the Pallas kernels), the numpy oracle and
-merkle_jax.  Exact equality."""
+merkle_jax.  Exact equality.  Also a numpy model of the lane-split
+permutation that K2's narrow-top kernel runs (csrc/poseidon.cu:
+permute_lanes), held against the scalar permutation."""
 import os
 
 import numpy as np
@@ -133,6 +135,199 @@ def test_digest_levels_match_merkle_jax(L):
     np.testing.assert_array_equal(convert.to_u64(got[0]).T, host)
 
 
+@pytest.mark.parametrize("L", [4, 12])
+@pytest.mark.parametrize("log_n", range(5, 12))
+def test_compress_tail_and_digest_levels_match_merkle_jax(log_n, L,
+                                                          monkeypatch):
+    """K2's narrow top (its plain version, which the wrapper takes for a CPU
+    tensor) and build_digest_levels against merkle_jax at every cap height,
+    with boundary words in the leaves; build_digest_levels at odd cap
+    heights with the tail threshold lowered, so that wide levels come
+    first.  merkle_jax's
+    levels at cap height h are the first log_n - h + 1 of its levels at
+    cap height 0 (checked at one h)."""
+    n = 1 << log_n
+    rng = np.random.default_rng(40 + log_n + L)
+    leaves = _rand((L, n), 50 + log_n + L)
+    leaves[:, :n // 4] = BOUNDARY[rng.integers(0, 5, size=(L, n // 4))]
+    t = convert.from_u64(leaves)
+    digests = merkle_torch.hash_leaves_or_noop_cols(t)
+    all_levels = [_from_jax(b) for b in mkj.build_digest_levels(
+        _jax_pair(leaves), 0)]
+    mid = [_from_jax(b) for b in mkj.build_digest_levels(
+        _jax_pair(leaves), log_n // 2)]
+    assert len(mid) == log_n - log_n // 2 + 1
+    for a, b in zip(mid, all_levels):
+        np.testing.assert_array_equal(a, b)
+    for cap in range(log_n + 1):
+        want = all_levels[:log_n - cap + 1]
+        if cap < log_n:
+            tail = pc.compress_tail_cuda(digests, log_n - cap)
+            assert [tuple(x.shape) for x in tail] == [w.shape
+                                                      for w in want[1:]]
+            for a, b in zip(tail, want[1:]):
+                np.testing.assert_array_equal(convert.to_u64(a), b)
+        if cap % 2:
+            monkeypatch.setattr(merkle_torch, "TAIL_PARENTS", 4)
+        got = merkle_torch.build_digest_levels(t, cap)
+        monkeypatch.undo()
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(convert.to_u64(a), b)
+
+
+# -- a numpy model of the lane-split permutation (csrc/poseidon.cu) ---------
+# Lanes are an array axis, a shuffle is a gather along it, and every
+# operation is the kernel's on wrapping uint64: the products' 128-bit
+# halves (gl::mul_wide; mul_wide_split gives the same halves), the
+# 128-bit reduction (gl::reduce128; reduce128_cc computes the same
+# representative), and the 160-bit Dot sums as five 32-bit limbs added with
+# carries, the top limb wrapping as addc.u32 does.
+
+_M32 = np.uint64(0xFFFFFFFF)
+_EPS = _M32
+
+
+def _mul_wide(a, b):
+    a0, a1, b0, b1 = a & _M32, a >> 32, b & _M32, b >> 32
+    t = a0 * b0
+    u = a0 * b1 + (t >> 32)
+    v = a1 * b0 + (u & _M32)
+    w = a1 * b1 + (u >> 32)
+    return (t & _M32) | (v << 32), w + (v >> 32)
+
+
+def _reduce128(lo, hi):
+    hh, hl = hi >> 32, hi & _EPS
+    t0 = lo - hh
+    t0 = np.where(lo < hh, t0 - _EPS, t0)
+    t1 = hl * _EPS
+    t2 = t0 + t1
+    return np.where(t2 < t1, t2 + _EPS, t2)
+
+
+def _mul(a, b):
+    return _reduce128(*_mul_wide(a, b))
+
+
+def _sbox(x):
+    x2 = _mul(x, x)
+    return _mul(_mul(x2, x), _mul(x2, x2))
+
+
+def _add_nc(a, b):
+    s = a + b
+    return np.where(s < a, s + _EPS, s)
+
+
+def _limbs(lo, hi):
+    return np.stack([lo & _M32, lo >> 32, hi & _M32, hi >> 32,
+                     np.zeros_like(lo)], axis=-1)
+
+
+def _dot_merge(d, e):
+    out, carry = np.empty_like(d), np.zeros_like(d[..., 0])
+    for j in range(5):
+        s = d[..., j] + e[..., j] + carry
+        out[..., j], carry = s & _M32, s >> 32
+    return out
+
+
+def _dot_reduce(d):
+    r = _reduce128((d[..., 1] << 32) | d[..., 0], (d[..., 3] << 32) | d[..., 2])
+    t = d[..., 4] << 32
+    return np.where(r < t, r - t - _EPS, r - t)
+
+
+def lane_split_permute(states: np.ndarray, G: int) -> np.ndarray:
+    """(B, 12) uint64 states -> (B, 12) canonical, as permute_lanes<G>
+    computes them: slot k of lane l holds word l + G k."""
+    pos = tpos
+    K = -(-12 // G)
+    lane = np.arange(G)
+    words = lane[:, None] + G * np.arange(K)[None, :]            # (G, K)
+    valid = words < 12
+    wc = np.minimum(words, 11)
+    B = states.shape[0]
+    st = np.where(valid[None], states[:, wc], 0).astype(np.uint64)
+    rc = pos.ALL_ROUND_CONSTANTS.reshape(30, 12)
+    mds = pos.MDS_MATRIX.astype(np.uint64)
+    first = pos.FAST_PARTIAL_FIRST_ROUND_CONSTANT
+    init = pos.FAST_PARTIAL_ROUND_INITIAL_MATRIX
+    prc = pos.fast_round_constants_after_sbox()
+    what, vs = pos.FAST_PARTIAL_ROUND_W_HATS, pos.FAST_PARTIAL_ROUND_VS
+    ms0 = np.uint64(pos.FAST_MS0)
+
+    def word(c):          # __shfl_sync(st.s[c / G], c % G, G): every lane
+        return np.repeat(st[:, c % G, c // G][:, None], G, axis=1)
+
+    def full_round(r):
+        nonlocal st
+        st = np.where(valid, _sbox(_add_nc(st, rc[r][wc])), st)
+        x = [word(c) for c in range(12)]
+        for k in range(K):
+            w = wc[:, k]
+            al = sum(mds[w, c] * (x[c] & _M32) for c in range(12))
+            ah = sum(mds[w, c] * (x[c] >> 32) for c in range(12))
+            low = al + (ah << 32)
+            high = (ah >> 32) + (low < al).astype(np.uint64)
+            st[:, :, k] = np.where(valid[:, k], _reduce128(low, high),
+                                   st[:, :, k])
+
+    with np.errstate(over="ignore"):
+        for r in range(4):
+            full_round(r)
+        st = np.where(valid, _add_nc(st, first[wc]), st)
+        x = [word(c) for c in range(12)]
+        rest = valid & (words > 0)
+        wr = np.maximum(wc - 1, 0)
+        for k in range(K):
+            d = np.zeros((B, G, 5), dtype=np.uint64)
+            for i in range(1, 12):
+                d = _dot_merge(d, _limbs(*_mul_wide(x[i], init[i - 1][wr[:, k]])))
+            st[:, :, k] = np.where(rest[:, k], _dot_reduce(d), st[:, :, k])
+        s0 = x[0]
+        for r in range(22):
+            d = np.zeros((B, G, 5), dtype=np.uint64)
+            for k in range(K):
+                e = _limbs(*_mul_wide(st[:, :, k], what[r][wr[:, k]]))
+                d = np.where(rest[:, k, None], _dot_merge(d, e), d)
+            o = 1
+            while o < G:      # __shfl_xor_sync of the five limbs
+                d = _dot_merge(d, d[:, lane ^ o])
+                o <<= 1
+            x0 = _add_nc(_sbox(s0), prc[r])
+            d = _dot_merge(d, _limbs(*_mul_wide(x0, ms0)))
+            for k in range(K):
+                lo, hi = _mul_wide(x0, vs[r][wr[:, k]])
+                lo = lo + st[:, :, k]
+                hi = hi + (lo < st[:, :, k]).astype(np.uint64)
+                st[:, :, k] = np.where(rest[:, k], _reduce128(lo, hi),
+                                       st[:, :, k])
+            s0 = _dot_reduce(d)
+        st[:, 0, 0] = s0[:, 0]
+        for r in range(26, 30):
+            full_round(r)
+    out = np.stack([st[:, w % G, w // G] for w in range(12)], axis=1)
+    return np.where(out >= np.uint64(P), out - np.uint64(P), out)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
+def test_lane_split_model_matches_permute_ints(G):
+    """The lane-split schedule, with its 160-bit merges across the group,
+    gives the scalar permutation on random states, states of boundary
+    values and compression states (words 8-11 zero)."""
+    rng = np.random.default_rng(60 + G)
+    st = _rand((24, 12), 70 + G)
+    st[:8] = BOUNDARY[rng.integers(0, 5, size=(8, 12))]
+    st[8] = P - 1
+    st[9] = 0
+    st[10:16, 8:] = 0
+    got = lane_split_permute(st, G)
+    for row, want in zip(got, st):
+        assert [int(v) for v in row] == tpos.permute_ints(want)
+
+
 def test_wrappers_reject_wrong_dtype():
     leaves = torch.zeros((8, 16), dtype=torch.int32)
     with pytest.raises(TypeError):
@@ -141,3 +336,10 @@ def test_wrappers_reject_wrong_dtype():
         pc.compress_level_cuda(torch.zeros((4, 16), dtype=torch.float64))
     with pytest.raises(ValueError):
         pc.compress_level_cuda(torch.zeros((4, 15), dtype=torch.int64))
+    with pytest.raises(TypeError):
+        pc.compress_tail_cuda(torch.zeros((4, 16), dtype=torch.int32), 2)
+    for shape, n_levels in (((4, 16), 0), ((4, 16), 5), ((3, 16), 1),
+                            ((4, 12), 3)):
+        with pytest.raises(ValueError):
+            pc.compress_tail_cuda(torch.zeros(shape, dtype=torch.int64),
+                                  n_levels)
