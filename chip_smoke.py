@@ -20,7 +20,14 @@ whole proof after the witness:
   (16 bits) and 28 query rounds, on the two rounds' commitments;
 * the whole proof after the witness (plonk/prover.py:prove, phases 2-8),
   from the same witness, and at 2^10 rows the card's proof against the one
-  the same machine makes with device="cpu".
+  the same machine makes with device="cpu";
+* the port's entry points on the real flagship circuit (phase 9b):
+  CircuitBuilder.build of the 2^17-leaf hash tree (models/hash_tree.py;
+  its constants-sigmas commitment on the card), its circuit digest, cap
+  and root held equal to the JAX package's pinned circuit
+  (plonk/programs/hash_tree_wide_ecc_k17.json), then
+  ProverSession.prove from the port's own host witness (cold and warm)
+  and the port's verifier on every proof and on a corrupted copy.
 
 The script builds the kernels from csrc/ with nvcc (one process per
 source, in parallel), holds each kernel, in each of its forms (K3 and K5
@@ -84,6 +91,11 @@ ARITY_BITS = 4
 FINAL_POLY_BITS = 5
 PUBLIC_INPUT_WIRES = ((0, 0), (1, 0), (2, 0), (3, 0))
 REDUCED_LOG_N = 10              # the card-vs-CPU proof
+# the flagship circuit built by the port (phase 9b): 2^17 leaves, 2^18 rows
+SESSION_LOG2_LEAVES = 17
+FLAGSHIP_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "plonky2_tpu_torch", "plonk", "programs",
+                            "hash_tree_wide_ecc_k17.json")
 CHECK_POINTS = 8
 CHUNK_SWEEP = [1 << k for k in range(15, 22)]
 CHECK_LANES = 4096
@@ -1505,6 +1517,167 @@ def phase_reduced(dev, rng):
     log("  the card's proof equals the CPU's, number for number")
 
 
+def host_rss_gib() -> tuple:
+    """(current, peak since the process started) resident memory of this
+    process in GiB."""
+    import resource
+    with open("/proc/self/statm") as f:
+        cur = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    return cur / 2**30, peak / 2**30
+
+
+def phase_session(dev) -> dict:
+    """The port's entry points on the flagship circuit, on their default
+    device (cuda, the current card `dev`): the port's CircuitBuilder
+    builds the 2^SESSION_LOG2_LEAVES-leaf hash tree under
+    CircuitConfig.wide_ecc_config() (2^18 rows, the constants-sigmas
+    commitment on the card; launches counted), its circuit digest, cap and
+    root held equal to the JAX package's pinned circuit (FLAGSHIP_REF);
+    then ProverSession.prove from its own host witness, one cold run
+    (counted) and WARM_RUNS warm runs (timed per kernel), each from
+    random.Random(0), so all give one proof; every proof verified with the
+    port's verifier, and a copy with one opened value changed rejected."""
+    import collections
+    import copy
+    import hashlib
+    import random
+    import torch
+    from plonky2_tpu_torch.fri.verifier import FriVerificationError
+    from plonky2_tpu_torch.models.hash_tree import build_hash_tree_circuit
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    from plonky2_tpu_torch.plonk.verifier import ProofVerificationError
+    from plonky2_tpu_torch.runtime.session import ProverSession
+    from plonky2_tpu_torch.utils.serialization import serialize_proof
+    with open(FLAGSHIP_REF) as f:
+        ref = json.load(f)
+
+    rss = host_rss_gib()
+    log(f"  host RSS before the build {rss[0]:.2f} GiB (peak so far "
+        f"{rss[1]:.2f})")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    build_timer = StageTimer()
+    t = time.perf_counter()
+    with KernelRecorder() as rec:
+        data, pw, root = build_hash_tree_circuit(
+            CircuitConfig.wide_ecc_config(), SESSION_LOG2_LEAVES, seed=SEED,
+            timing=build_timer)
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    launches = read_launch_counts()
+    for entry in COMMIT_PATH:
+        check(launches[entry] > 0, f"{entry} was not launched by build()")
+    build = {"cold_s": build_s, "warm_s": [build_s], "launches": launches,
+             "kernel_ms": rec.ms_by_kernel(), "cost": {},
+             "stages_ms": build_timer.ms}
+    for name, args, _, _ in rec.records:
+        c = build["cost"].setdefault(name, [0, 0, 0])
+        for j, x in enumerate(launch_cost(name, args)):
+            c[j] += x
+    common, po = data.common, data.prover_only
+    rss = host_rss_gib()
+    log(f"  build: {build_s:.3f} s, {common.degree()} rows, "
+        f"{len(po.generators)} generators, {len(po.representative_map)} "
+        f"forest slots; host RSS {rss[0]:.2f} GiB (peak {rss[1]:.2f}); "
+        f"launches {launches}")
+    log_stages(build_timer, build_s)
+    ints = lambda a: [int(x) for x in np.asarray(a).reshape(-1)]  # noqa: E731
+    check(common.degree_bits() == ref["degree_bits"] == LOG_N
+          and common.config.num_wires == NUM_POLYS, "flagship shape")
+    check(ints(po.circuit_digest) == ref["circuit_digest"],
+          "circuit digest differs from the JAX package's flagship circuit")
+    check([ints(d) for d in data.verifier_only.constants_sigmas_cap.digests]
+          == ref["constants_sigmas_cap"], "constants-sigmas cap differs")
+    check(root == ref["root"], "expected root differs")
+    log(f"  circuit digest {ints(po.circuit_digest)} and the 16 cap digests "
+        "equal the JAX package's pinned flagship circuit; root equal")
+    classes = collections.Counter(type(g).__name__ for g in po.generators)
+    log(f"  generators per class: {dict(classes)}")
+
+    t = time.perf_counter()
+    sess = ProverSession(data)
+    torch.cuda.synchronize()
+    session_s = time.perf_counter() - t
+    check(sess.context.cs_batch is po.constants_sigmas_commitment,
+          "the session committed the constants-sigmas again")
+    log(f"  ProverSession: {session_s:.3f} s (the shipped program, build()'s "
+        "constants-sigmas commitment)")
+
+    def run(timer):
+        return sess.prove(pw, rng=random.Random(0), timing=timer)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    runs = []
+    for i in range(1 + WARM_RUNS):
+        timer = StageTimer()
+        with contextlib.ExitStack() as stack:
+            rec = stack.enter_context(KernelRecorder()) if i else None
+            t = time.perf_counter()
+            proof = run(timer)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        if not i:
+            launches = read_launch_counts()
+            for entry in PROVE_PATH:
+                check(launches[entry] > 0,
+                      f"{entry} was not launched by ProverSession.prove")
+        check(proof.public_inputs == ref["root"], "public inputs != root")
+        t = time.perf_counter()
+        sess.verify(proof)
+        verify_s = time.perf_counter() - t
+        blob = serialize_proof(proof)
+        wit = timer.ms["witness"] / 1e3
+        runs.append({"wall_s": wall, "witness_s": wit, "verify_s": verify_s,
+                     "stages_ms": timer.ms, "bytes": len(blob),
+                     "sha256": hashlib.sha256(blob).hexdigest(),
+                     "kernel_ms": rec.ms_by_kernel() if rec else None,
+                     "records": rec.records if rec else None})
+        log(f"  prove {'cold' if not i else 'warm'}: {wall:.4f} s, without "
+            f"the witness {wall - wit:.4f} s (witness {wit:.3f} s); verify "
+            f"{verify_s:.3f} s; proof {len(blob)} bytes, sha256 "
+            f"{runs[-1]['sha256']}; host RSS peak {host_rss_gib()[1]:.2f} "
+            "GiB")
+    peak = torch.cuda.max_memory_allocated()
+    log_stages(timer, runs[-1]["wall_s"])
+    profile = profile_run(lambda: run(None))
+    check(len({r["sha256"] for r in runs}) == 1,
+          "proofs from one seed differ")
+    bad = copy.deepcopy(proof)
+    bad.proof.openings.wires[0, 0] = (int(bad.proof.openings.wires[0, 0])
+                                      + 1) % (2**64 - 2**32 + 1)
+    try:
+        sess.verify(bad)
+    except (ProofVerificationError, FriVerificationError) as e:
+        log(f"  a proof with one opened value changed is rejected: {e}")
+    else:
+        raise RuntimeError("check failed: a corrupted proof verified")
+    warm = runs[1:]
+    secs = lambda xs: ", ".join(f"{x:.4f}" for x in xs)  # noqa: E731
+    log(f"  ProverSession.prove warm (s): "
+        f"{secs(r['wall_s'] for r in warm)}; without the witness "
+        f"{secs(r['wall_s'] - r['witness_s'] for r in warm)}; cold "
+        f"{runs[0]['wall_s']:.4f}; peak max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB")
+    kernel_ms = {k: float(np.median([r["kernel_ms"].get(k, 0.0)
+                                     for r in warm]))
+                 for k in warm[-1]["kernel_ms"]}
+    cost = {}
+    for name, args, _, _ in warm[-1]["records"]:
+        c = cost.setdefault(name, [0, 0, 0])
+        for j, x in enumerate(launch_cost(name, args)):
+            c[j] += x
+    for r in runs:
+        del r["records"], r["kernel_ms"]
+    session = {"cold_s": runs[0]["wall_s"],
+               "warm_s": [r["wall_s"] for r in warm], "launches": launches,
+               "kernel_ms": kernel_ms, "cost": cost, "peak_bytes": peak,
+               "runs": runs, "session_s": session_s, "profile": profile,
+               "generators": dict(classes), "host_rss_gib": host_rss_gib()}
+    return {"build": build, "session": session}
+
+
 def phase_probes(dev) -> dict:
     """The card's issue rate of independent 32x32 multiplies (mad.lo.u32,
     mad.wide.u32 with a 64-bit addend, mul.wide.u32 and mad.hi.u32; CUDA
@@ -1585,6 +1758,7 @@ def kernels_line(kern, paths, smi) -> dict:
     for key, (name, replaces) in TPU_KERNELS.items():
         entries = [e for e, v in KERNELS.items() if v[0] == key]
         cost = [0, 0, 0]
+        path_cost = {k: [0, 0, 0] for k in paths}
         forms, launches, ms = [], {}, {}
         for entry in entries:
             c = [sum(p["cost"].get(entry, (0, 0, 0))[j]
@@ -1595,9 +1769,11 @@ def kernels_line(kern, paths, smi) -> dict:
             check(sum(f_launches.values()) > 0, f"{entry} was never launched")
             check(entry in kern, f"{entry} was not held against its plain "
                   "version")
-            for k in paths:
+            for k, p in paths.items():
                 launches[k] = launches.get(k, 0) + f_launches[k]
                 ms[k] = ms.get(k, 0.0) + f_ms[k]
+                path_cost[k] = [x + y for x, y in zip(
+                    path_cost[k], p["cost"].get(entry, (0, 0, 0)))]
             cost = [x + y for x, y in zip(cost, c)]
             f_bound, f_by = bound(*c)
             forms.append({"entry": entry, "form": KERNELS[entry][1],
@@ -1622,7 +1798,10 @@ def kernels_line(kern, paths, smi) -> dict:
             "bound_bytes": cost[0], "bound_int32_muls": cost[1],
             "bound_fp64_fmas": cost[2],
             "library_ms": None, "launches_by_path": launches,
-            "ms_by_path": ms, "forms": forms})
+            "ms_by_path": ms,
+            "bound_ms_by_path": {k: bound(*c)[0]
+                                 for k, c in path_cost.items()},
+            "forms": forms})
     return {"kernels": out, "card": smi}
 
 
@@ -1659,6 +1838,15 @@ def main() -> int:
         phase_reduced(dev, rng)
     paths = {"commit": full, "quotient": quot, "openings": opening,
              "prove": proved}
+    for p in paths.values():     # the earlier phases' device state
+        for key in ("batch", "values", "data", "challenger", "out",
+                    "cs_batch", "openings", "proof"):
+            p.pop(key, None)
+    torch.cuda.empty_cache()
+    with phase(f"9b circuit, witness, session (the flagship hash tree of "
+               f"2^{SESSION_LOG2_LEAVES} leaves, built, proved and "
+               "verified by the port)"):
+        paths.update(phase_session(dev))
     with phase("10 kernels line"):
         line = kernels_line(kern, paths, smi)
         line["narrow_levels"] = narrow
@@ -1667,7 +1855,8 @@ def main() -> int:
                                   "resident_bytes", "profile") if f in p}
             for k, p in paths.items()}
         for k, p in paths.items():
-            for f in ("stages_ms", "merkle_levels", "host", "k2_before"):
+            for f in ("stages_ms", "merkle_levels", "host", "k2_before",
+                      "runs", "session_s", "generators", "host_rss_gib"):
                 if f in p:
                     line["paths"][k][f] = p[f]
     with phase("11 int32 multiply rate and field-product SASS"):

@@ -19,3 +19,14 @@ import torch
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless one is given."""
     return torch.device("cuda" if device is None else device)
+
+
+def lies_on(t: torch.Tensor, device: torch.device) -> bool:
+    """Whether tensor `t` lies on `device`; a cuda device without an index
+    is the current one."""
+    if t.device.type != device.type:
+        return False
+    if device.index is None:
+        return (device.type != "cuda"
+                or t.device.index == torch.cuda.current_device())
+    return t.device.index == device.index

@@ -2,9 +2,10 @@
 
 The port's own copy of what it needs from plonky2_tpu/field/goldilocks.py:
 p = 2^64 - 2^32 + 1, EPSILON = 2^32 - 1 = 2^64 mod p, two-adicity 32, the
-canonical two-adic generator, and the host-side ``add``/``sub``/``mul``/``inverse``/
-``powers``/``two_adic_subgroup`` used to build twiddle, shift and domain
-tables.  Arrays hold canonical values in [0, p).
+canonical two-adic generator, and the host-side ``add``/``sub``/``neg``/
+``mul``/``exp_u64``/``inverse``/``powers``/``two_adic_subgroup`` used to
+build twiddle, shift and domain tables and by the host layer (gates,
+witness generators).  Arrays hold canonical values in [0, p).
 """
 from __future__ import annotations
 
@@ -39,6 +40,11 @@ def sub(a: np.ndarray, b: np.ndarray) -> np.ndarray:
         return np.where(a < b, d - _EPS, d)
 
 
+def neg(a: np.ndarray) -> np.ndarray:
+    a = np.asarray(a, _U64)
+    return np.where(a == 0, a, _P - a)
+
+
 def _mul_wide(a: np.ndarray, b: np.ndarray):
     """64x64 -> 128-bit product as (lo64, hi64) uint64 pairs."""
     with np.errstate(over="ignore"):
@@ -69,6 +75,20 @@ def reduce128(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
 
 def mul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return reduce128(*_mul_wide(np.asarray(a, _U64), np.asarray(b, _U64)))
+
+
+def exp_u64(a: np.ndarray, e: int) -> np.ndarray:
+    """a ** e (e a python int) by square-and-multiply, elementwise."""
+    a = np.asarray(a, dtype=_U64)
+    result = np.full(a.shape, 1, dtype=_U64)
+    base = a
+    while e > 0:
+        if e & 1:
+            result = mul(result, base)
+        e >>= 1
+        if e:
+            base = mul(base, base)
+    return result
 
 
 def powers(base: int, n: int) -> np.ndarray:

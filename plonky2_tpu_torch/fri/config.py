@@ -111,11 +111,17 @@ class FriParams:
     degree_bits: int
     reduction_arity_bits: Tuple[int, ...]
 
+    def total_arities(self) -> int:
+        return sum(self.reduction_arity_bits)
+
     def lde_bits(self) -> int:
         return self.degree_bits + self.config.rate_bits
 
+    def lde_size(self) -> int:
+        return 1 << self.lde_bits()
+
     def final_poly_bits(self) -> int:
-        return self.degree_bits - sum(self.reduction_arity_bits)
+        return self.degree_bits - self.total_arities()
 
     def final_poly_len(self) -> int:
         return 1 << self.final_poly_bits()

@@ -1,0 +1,89 @@
+"""Witness containers (the port's copy of plonky2_tpu/iop/witness.py;
+reference plonky2/src/iop/witness.rs).
+
+``PartialWitness`` holds the values a caller sets.  ``PartitionWitness``
+stores one value per copy-constraint class (its representative), so
+setting any member of a class sets them all; that is what lets the
+generators' fixpoint run each dependency chain in one pass.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from .target import Target, target_index
+
+
+class PartialWitness:
+    def __init__(self):
+        self.target_values: Dict[Target, int] = {}
+
+    def set_target(self, t: Target, value: int) -> None:
+        v = int(value)
+        if self.target_values.get(t, v) != v:
+            raise ValueError(f"conflicting value for {t}")
+        self.target_values[t] = v
+
+    def set_wire(self, row: int, column: int, value: int) -> None:
+        self.set_target(("w", row, column), value)
+
+    def set_hash_target(self, ht, hash4) -> None:
+        arr = np.asarray(hash4, dtype=np.uint64).reshape(4)
+        for t, v in zip(ht, arr):
+            self.set_target(t, int(v))
+
+
+class PartitionWitness:
+    """One slot per representative of the copy-constraint forest."""
+
+    def __init__(self, num_wires: int, degree: int, representative_map):
+        self.num_wires = num_wires
+        self.degree = degree
+        self.rep_map = representative_map
+        n = len(representative_map)
+        self.values = np.zeros(n, dtype=np.uint64)
+        self.is_set = np.zeros(n, dtype=bool)
+
+    def rep(self, t: Target) -> int:
+        return int(self.rep_map[target_index(t, self.num_wires,
+                                             self.degree)])
+
+    def contains(self, t: Target) -> bool:
+        return bool(self.is_set[self.rep(t)])
+
+    def get_target(self, t: Target) -> int:
+        r = self.rep(t)
+        if not self.is_set[r]:
+            raise ValueError(f"target {t} not set")
+        return int(self.values[r])
+
+    def set_target_returning_rep(self, t: Target,
+                                 value: int) -> Optional[int]:
+        """The representative's index if it was newly set; None if it was
+        set already (to the same value, or this raises)."""
+        r = self.rep(t)
+        v = int(value)
+        if self.is_set[r]:
+            if int(self.values[r]) != v:
+                raise ValueError(
+                    f"Partition containing {t} was set twice with different "
+                    f"values: {int(self.values[r])} != {v}")
+            return None
+        self.values[r] = v
+        self.is_set[r] = True
+        return r
+
+    def get_targets(self, targets) -> List[int]:
+        return [self.get_target(t) for t in targets]
+
+    def full_witness(self) -> np.ndarray:
+        """(num_wires, degree) wire values (the reference's
+        MatrixWitness)."""
+        return self.full_witness_rowmajor().T.copy()
+
+    def full_witness_rowmajor(self) -> np.ndarray:
+        """(degree, num_wires) wire values, the forest's own order, with
+        one gather."""
+        reps = np.asarray(self.rep_map[:self.degree * self.num_wires])
+        return self.values[reps].reshape(self.degree, self.num_wires)

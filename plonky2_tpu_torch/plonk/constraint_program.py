@@ -26,7 +26,7 @@ from __future__ import annotations
 import functools
 import heapq
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -486,12 +486,16 @@ def program_from_npz(arrays) -> ConstraintProgram:
     return ConstraintProgram(**kw)
 
 
-def save(path: str, program: ConstraintProgram, shape=None) -> None:
+def save(path: str, program: ConstraintProgram, shape=None,
+         gate_ids=None) -> None:
     """One compressed ``.npz`` holding the program and, when given, the
-    circuit shape (plonk/circuit_shape.py) under ``shape_`` keys."""
+    circuit shape (plonk/circuit_shape.py) under ``shape_`` keys and the
+    ids of the circuit's gates, in order, under ``gate_ids``."""
     arrays = program.arrays()
     if shape is not None:
         arrays.update({f"shape_{k}": v for k, v in shape.arrays().items()})
+    if gate_ids is not None:
+        arrays["gate_ids"] = np.array(list(gate_ids), dtype=np.str_)
     np.savez_compressed(path, **arrays)
 
 
@@ -505,6 +509,13 @@ def load(path: str):
     shape: Optional[CircuitShape] = (CircuitShape.from_arrays(shape_keys)
                                      if shape_keys else None)
     return program_from_npz(arrays), shape
+
+
+def load_gate_ids(path: str) -> Optional[Tuple[str, ...]]:
+    """The gate ids a file written by ``save`` holds, or None."""
+    with np.load(path, allow_pickle=False) as z:
+        return (tuple(str(g) for g in z["gate_ids"])
+                if "gate_ids" in z.files else None)
 
 
 def random_program(rng: np.random.Generator, n_inputs: int = 6,

@@ -1,20 +1,22 @@
 """PLONK proof containers and the opening set.
 
 The port's counterpart of plonky2_tpu/plonk/proof.py (``OpeningSet.new``,
-``to_fri_openings``, ``Proof``, ``ProofWithPublicInputs``), with the same
-field names.  The opened values come from the commitments' resident
-coefficients (ops/openings.py); only the (B, 2) values reach the host.
+``to_fri_openings``, ``Proof``, ``ProofWithPublicInputs``,
+``ProofChallenges``), with the same field names.  The opened values come
+from the commitments' resident coefficients (ops/openings.py); only the
+(B, 2) values reach the host.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 
 from ..field import extension as ext
-from ..fri.proof import FriProof
+from ..fri.proof import FriChallenges, FriProof
 from ..fri.structure import FriOpeningBatch, FriOpenings
+from ..hash import poseidon as pos
 from ..hash.merkle import MerkleCap
 from ..ops.openings import (eval_device_polys_ext, eval_openings_batched,
                             ext_powers)
@@ -79,3 +81,15 @@ class Proof:
 class ProofWithPublicInputs:
     proof: Proof
     public_inputs: List[int]
+
+    def get_public_inputs_hash(self) -> np.ndarray:
+        return pos.hash_no_pad(np.array(self.public_inputs, dtype=np.uint64))
+
+
+@dataclass
+class ProofChallenges:
+    plonk_betas: List[int]
+    plonk_gammas: List[int]
+    plonk_alphas: List[int]
+    plonk_zeta: Tuple[int, int]
+    fri_challenges: FriChallenges

@@ -8,8 +8,8 @@ the constraint program over the quotient coset, then the coset INTT ->
 quotient commitment), drawing the alphas after the Z/PP cap; the quotient
 cap, then zeta; the opening set, observed; the FRI opening proof
 (fri/device_prover.py).  The witness comes from the caller (the witness
-generators are not ported), with the circuit's data from a
-plonk.prover_data.ProverData.
+generators run before it, in runtime/session.py), with the circuit's data
+from a plonk.prover_data.ProverData.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import lies_on, resolve_device
 from ..field import extension as ext
 from ..field import goldilocks as gl
 from ..fri.challenges import observe_openings
@@ -85,12 +85,22 @@ class ProverContext:
     quotient context (the JAX package keeps the same in its prover data
     and session)."""
 
-    def __init__(self, data, device=None, chunk: Optional[int] = None):
+    def __init__(self, data, device=None, chunk: Optional[int] = None,
+                 cs_batch: Optional[PolynomialBatch] = None):
+        """``cs_batch``: the constants-sigmas commitment already made on
+        this device (plonk/circuit_builder.py:build makes one); committed
+        here from ``data.cs_coeffs`` when None."""
         self.device = resolve_device(device)
         s = data.shape
-        self.cs_batch = PolynomialBatch.from_coeffs(
-            data.cs_coeffs, s.rate_bits, False, s.cap_height,
-            device=self.device)
+        if cs_batch is None:
+            cs_batch = PolynomialBatch.from_coeffs(
+                data.cs_coeffs, s.rate_bits, False, s.cap_height,
+                device=self.device)
+        elif not lies_on(cs_batch.leaves_dev, self.device):
+            raise ValueError(f"the constants-sigmas commitment lies on "
+                             f"{cs_batch.leaves_dev.device}, the context "
+                             f"on {self.device}")
+        self.cs_batch = cs_batch
         self.sigmas = _on_device(data.sigmas, self.device)
         self.quotient = DeviceQuotient(s, data.program, self.cs_batch,
                                        chunk=chunk, device=self.device)

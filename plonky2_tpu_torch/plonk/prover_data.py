@@ -54,25 +54,11 @@ class ProverData:
     def partial_products_range(self) -> range:
         return range(self.shape.num_challenges, self.shape.num_zs_pp)
 
-    def fri_oracles(self) -> List[FriOracleInfo]:
-        s = self.shape
-        sizes = (s.num_preprocessed_polys, s.num_wires, s.num_zs_pp,
-                 s.num_quotient_polys)
-        return [FriOracleInfo(n, b) for n, b in zip(sizes, ORACLE_BLINDING)]
-
     def get_fri_instance(self, zeta) -> FriInstanceInfo:
-        """Every polynomial opened at zeta; the Zs also at g * zeta."""
-        polys = [p for o, info in enumerate(self.fri_oracles())
-                 for p in FriPolynomialInfo.from_range(o,
-                                                       range(info.num_polys))]
-        g = gl.primitive_root_of_unity(self.shape.degree_bits)
-        zeta_next = ext.s_mul(zeta, (g, 0))
-        return FriInstanceInfo(
-            oracles=self.fri_oracles(),
-            batches=[FriBatchInfo(point=tuple(zeta), polynomials=polys),
-                     FriBatchInfo(point=zeta_next,
-                                  polynomials=FriPolynomialInfo.from_range(
-                                      2, self.zs_range()))])
+        s = self.shape
+        return fri_instance((s.num_preprocessed_polys, s.num_wires,
+                             s.num_zs_pp, s.num_quotient_polys),
+                            s.degree_bits, s.num_challenges, zeta)
 
     def public_inputs(self, witness) -> List[int]:
         """The public inputs' values, read from the (num_wires, degree)
@@ -102,6 +88,23 @@ class ProverData:
             public_input_wires=public_input_wires(
                 prover_only.public_inputs, prover_only.representative_map,
                 shape.num_wires, shape.degree))
+
+
+def fri_instance(sizes, degree_bits: int, num_challenges: int,
+                 zeta) -> FriInstanceInfo:
+    """The four oracles of `sizes` polynomials (constants-sigmas, wires,
+    Z/PP, quotient), every polynomial opened at zeta and the Zs also at
+    g * zeta (reference circuit_data.rs:351-371)."""
+    oracles = [FriOracleInfo(n, b) for n, b in zip(sizes, ORACLE_BLINDING)]
+    polys = [p for o, n in enumerate(sizes)
+             for p in FriPolynomialInfo.from_range(o, range(n))]
+    g = gl.primitive_root_of_unity(degree_bits)
+    return FriInstanceInfo(
+        oracles=oracles,
+        batches=[FriBatchInfo(point=tuple(zeta), polynomials=polys),
+                 FriBatchInfo(point=ext.s_mul(zeta, (g, 0)),
+                              polynomials=FriPolynomialInfo.from_range(
+                                  2, range(num_challenges)))])
 
 
 def fri_params_from(params) -> FriParams:

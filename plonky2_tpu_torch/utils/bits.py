@@ -11,6 +11,10 @@ def log2_strict(n: int) -> int:
     return k
 
 
+def log2_ceil(n: int) -> int:
+    return (n - 1).bit_length() if n > 1 else 0
+
+
 def reverse_bits(x: int, bits: int) -> int:
     out = 0
     for _ in range(bits):

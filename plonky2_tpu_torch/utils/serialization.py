@@ -1,0 +1,185 @@
+"""Proof (de)serialization (the port's copy of the uncompressed forms of
+plonky2_tpu/utils/serialization.py), byte-compatible with the reference's
+Buffer format (plonky2/src/util/serialization.rs:480-700): fields as
+little-endian u64, hashes as 4 fields, Merkle proofs prefixed by their
+length in one u8, structures concatenated with no other framing (the
+shapes come from the CommonCircuitData).
+"""
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+
+from ..fri.proof import (SALT_SIZE, FriInitialTreeProof, FriProof,
+                         FriQueryRound, FriQueryStep)
+from ..hash.merkle import MerkleCap, MerkleProof
+from ..plonk.proof import OpeningSet, Proof, ProofWithPublicInputs
+
+
+class Buffer:
+    def __init__(self, data: bytes = b""):
+        self.data = bytearray(data)
+        self.pos = 0
+
+    def bytes(self) -> bytes:
+        return bytes(self.data)
+
+    # -- writing -----------------------------------------------------------
+
+    def write_u8(self, x: int):
+        self.data += struct.pack("<B", x)
+
+    def write_field(self, x):
+        self.data += struct.pack("<Q", int(x))
+
+    def write_field_vec(self, v):
+        self.data += np.asarray(v, dtype=np.uint64).reshape(-1).astype(
+            "<u8").tobytes()
+
+    def write_field_ext_vec(self, v):
+        self.write_field_vec(np.asarray(v, dtype=np.uint64).reshape(-1, 2))
+
+    def write_hash(self, h):
+        self.write_field_vec(np.asarray(h, dtype=np.uint64).reshape(4))
+
+    def write_merkle_cap(self, cap: MerkleCap):
+        for h in cap.digests:
+            self.write_hash(h)
+
+    def write_merkle_proof(self, p: MerkleProof):
+        if len(p.siblings) >= 256:
+            raise ValueError(f"a Merkle proof of {len(p.siblings)} siblings")
+        self.write_u8(len(p.siblings))
+        for h in p.siblings:
+            self.write_hash(h)
+
+    def write_opening_set(self, os: OpeningSet):
+        for v in (os.constants, os.plonk_sigmas, os.wires, os.plonk_zs,
+                  os.plonk_zs_next, os.partial_products, os.quotient_polys):
+            self.write_field_ext_vec(v)
+
+    def write_fri_proof(self, fp: FriProof):
+        for cap in fp.commit_phase_merkle_caps:
+            self.write_merkle_cap(cap)
+        for fqr in fp.query_round_proofs:
+            for v, p in fqr.initial_trees_proof.evals_proofs:
+                self.write_field_vec(v)
+                self.write_merkle_proof(p)
+            for step in fqr.steps:
+                self.write_field_ext_vec(step.evals)
+                self.write_merkle_proof(step.merkle_proof)
+        self.write_field_ext_vec(fp.final_poly)
+        self.write_field(fp.pow_witness)
+
+    def write_proof(self, proof: Proof):
+        self.write_merkle_cap(proof.wires_cap)
+        self.write_merkle_cap(proof.plonk_zs_partial_products_cap)
+        self.write_merkle_cap(proof.quotient_polys_cap)
+        self.write_opening_set(proof.openings)
+        self.write_fri_proof(proof.opening_proof)
+
+    def write_proof_with_public_inputs(self, pwp: ProofWithPublicInputs):
+        self.write_proof(pwp.proof)
+        self.write_field_vec(np.array(pwp.public_inputs, dtype=np.uint64))
+
+    # -- reading -----------------------------------------------------------
+
+    def read_u8(self) -> int:
+        v = self.data[self.pos]
+        self.pos += 1
+        return v
+
+    def read_field(self) -> int:
+        v = struct.unpack_from("<Q", self.data, self.pos)[0]
+        self.pos += 8
+        return v
+
+    def read_field_vec(self, n: int) -> np.ndarray:
+        out = np.frombuffer(self.data, dtype="<u8", count=n, offset=self.pos)
+        self.pos += 8 * n
+        return out.astype(np.uint64)
+
+    def read_field_ext_vec(self, n: int) -> np.ndarray:
+        return self.read_field_vec(2 * n).reshape(n, 2)
+
+    def read_hash(self) -> np.ndarray:
+        return self.read_field_vec(4)
+
+    def read_merkle_cap(self, cap_height: int) -> MerkleCap:
+        return MerkleCap(self.read_field_vec(4 << cap_height)
+                         .reshape(1 << cap_height, 4))
+
+    def read_merkle_proof(self) -> MerkleProof:
+        n = self.read_u8()
+        return MerkleProof([self.read_hash() for _ in range(n)])
+
+    def read_opening_set(self, common) -> OpeningSet:
+        cfg = common.config
+        return OpeningSet(
+            constants=self.read_field_ext_vec(common.num_constants),
+            plonk_sigmas=self.read_field_ext_vec(cfg.num_routed_wires),
+            wires=self.read_field_ext_vec(cfg.num_wires),
+            plonk_zs=self.read_field_ext_vec(cfg.num_challenges),
+            plonk_zs_next=self.read_field_ext_vec(cfg.num_challenges),
+            partial_products=self.read_field_ext_vec(
+                cfg.num_challenges * common.num_partial_products),
+            quotient_polys=self.read_field_ext_vec(
+                common.num_quotient_polys()))
+
+    def read_fri_proof(self, common) -> FriProof:
+        params = common.fri_params
+        cfg = params.config
+        caps = [self.read_merkle_cap(cfg.cap_height)
+                for _ in params.reduction_arity_bits]
+        # the constants-sigmas oracle is never salted
+        salt = SALT_SIZE if params.hiding else 0
+        num_leaves_per_oracle = [
+            common.num_preprocessed_polys(),
+            common.config.num_wires + salt,
+            common.num_zs_partial_products_polys() + salt,
+            common.num_quotient_polys() + salt,
+        ]
+        rounds = []
+        for _ in range(cfg.num_query_rounds):
+            evals_proofs = []
+            for n_polys in num_leaves_per_oracle:
+                v = self.read_field_vec(n_polys)
+                evals_proofs.append((v, self.read_merkle_proof()))
+            steps = []
+            for arity_bits in params.reduction_arity_bits:
+                evals = self.read_field_ext_vec(1 << arity_bits)
+                steps.append(FriQueryStep(evals, self.read_merkle_proof()))
+            rounds.append(FriQueryRound(FriInitialTreeProof(evals_proofs),
+                                        steps))
+        final_poly = self.read_field_ext_vec(params.final_poly_len())
+        pow_witness = self.read_field()
+        return FriProof(caps, rounds, final_poly, pow_witness)
+
+    def read_proof(self, common) -> Proof:
+        cap_height = common.config.fri_config.cap_height
+        return Proof(
+            wires_cap=self.read_merkle_cap(cap_height),
+            plonk_zs_partial_products_cap=self.read_merkle_cap(cap_height),
+            quotient_polys_cap=self.read_merkle_cap(cap_height),
+            openings=self.read_opening_set(common),
+            opening_proof=self.read_fri_proof(common))
+
+    def read_proof_with_public_inputs(self, common) -> ProofWithPublicInputs:
+        proof = self.read_proof(common)
+        pis = [int(x) for x in self.read_field_vec(common.num_public_inputs)]
+        return ProofWithPublicInputs(proof, pis)
+
+
+def serialize_proof(pwp: ProofWithPublicInputs) -> bytes:
+    buf = Buffer()
+    buf.write_proof_with_public_inputs(pwp)
+    return buf.bytes()
+
+
+def deserialize_proof(data: bytes, common) -> ProofWithPublicInputs:
+    buf = Buffer(data)
+    out = buf.read_proof_with_public_inputs(common)
+    if buf.pos != len(buf.data):
+        raise ValueError("trailing bytes in proof")
+    return out

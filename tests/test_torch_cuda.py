@@ -373,3 +373,63 @@ def test_prove_on_card_matches_cpu(dev):
             np.testing.assert_array_equal(sa.evals, sb.evals)
             np.testing.assert_array_equal(sa.merkle_proof.siblings,
                                           sb.merkle_proof.siblings)
+
+
+def test_build_on_card_matches_cpu(dev):
+    """CircuitBuilder.build commits the constants-sigmas on the card: the
+    hash tree of 2^5 leaves under wide_ecc_config has the CPU build's cap,
+    circuit digest, coefficients and sigmas."""
+    from plonky2_tpu_torch.models.hash_tree import build_hash_tree_circuit
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    card, _, root = build_hash_tree_circuit(CircuitConfig.wide_ecc_config(),
+                                            5, device=dev)
+    cpu, _, cpu_root = build_hash_tree_circuit(
+        CircuitConfig.wide_ecc_config(), 5, device="cpu")
+    assert root == cpu_root
+    cs = card.prover_only.constants_sigmas_commitment
+    assert cs.leaves_dev.device.type == "cuda"
+    np.testing.assert_array_equal(card.verifier_only.constants_sigmas_cap
+                                  .digests,
+                                  cpu.verifier_only.constants_sigmas_cap
+                                  .digests)
+    np.testing.assert_array_equal(card.prover_only.circuit_digest,
+                                  cpu.prover_only.circuit_digest)
+    np.testing.assert_array_equal(
+        cs.polynomials,
+        cpu.prover_only.constants_sigmas_commitment.polynomials)
+    np.testing.assert_array_equal(card.prover_only.sigmas,
+                                  cpu.prover_only.sigmas)
+
+
+def test_session_on_card_matches_cpu(dev):
+    """ProverSession on the card and on the CPU, from the same random
+    stream, give the same proof bytes, and the port's verifier accepts
+    it."""
+    import random
+
+    from plonky2_tpu_torch.models.hash_tree import build_hash_tree_circuit
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    from plonky2_tpu_torch.runtime.session import ProverSession
+    from plonky2_tpu_torch.utils.serialization import serialize_proof
+    blobs = {}
+    for where in (dev, "cpu"):
+        data, pw, root = build_hash_tree_circuit(
+            CircuitConfig.wide_ecc_config(), 5, device=where)
+        sess = ProverSession(data, device=where)
+        proof = sess.prove(pw, rng=random.Random(11))
+        assert proof.public_inputs == root
+        sess.verify(proof)
+        blobs[str(where)] = serialize_proof(proof)
+    assert blobs[str(dev)] == blobs["cpu"]
+
+
+def test_session_reuses_the_build_commitment_on_the_default_device(dev):
+    """build() and ProverSession with no device both run on the current
+    card, and the session takes build()'s constants-sigmas commitment."""
+    from plonky2_tpu_torch.models.hash_tree import build_hash_tree_circuit
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    from plonky2_tpu_torch.runtime.session import ProverSession
+    data, _, _ = build_hash_tree_circuit(CircuitConfig.wide_ecc_config(), 2)
+    cs = data.prover_only.constants_sigmas_commitment
+    assert cs.leaves_dev.device == dev
+    assert ProverSession(data).context.cs_batch is cs

@@ -11,7 +11,9 @@
   witness, gives the JAX host prover's quotient coefficients.
 
 Exact equality throughout."""
+import functools
 import hashlib
+import json
 import os
 import pickle
 
@@ -45,24 +47,43 @@ FLAGSHIP_SHA256 = ("ec7e94f7288e5c0b2b2a021ae34aabfd7dfced0f1e1c38782e5e0"
                    "57fe3381f58")     # the pin bench.py holds
 FLAGSHIP_NPZ = os.path.join(REPO, "plonky2_tpu_torch", "plonk", "programs",
                             "hash_tree_wide_ecc.npz")
+FLAGSHIP_JSON = os.path.join(REPO, "plonky2_tpu_torch", "plonk", "programs",
+                             "hash_tree_wide_ecc_k17.json")
 BOUNDARY = np.array([0, 1, (1 << 32) - 1, 1 << 32, P - 1], dtype=np.uint64)
 
 
-def flagship_common():
-    """The flagship circuit's CommonCircuitData, from the tracked pickle
-    after its sha256 pin is checked (the pickle may run code)."""
+@functools.lru_cache(maxsize=1)
+def flagship_pickle():
+    """(CommonCircuitData, reference values) of the flagship circuit, from
+    the tracked pickle after its sha256 pin is checked (the pickle may run
+    code).  The reference values are what FLAGSHIP_JSON holds: degree_bits,
+    the circuit digest, the constants-sigmas cap and the expected root."""
     h = hashlib.sha256()
     with open(FLAGSHIP_PKL, "rb") as f:
         for block in iter(lambda: f.read(1 << 24), b""):
             h.update(block)
     assert h.hexdigest() == FLAGSHIP_SHA256, "flagship pickle digest changed"
     with open(FLAGSHIP_PKL, "rb") as f:
-        return pickle.load(f)["common"]
+        payload = pickle.load(f)
+    common = payload["common"]
+    ints = lambda a: [int(x) for x in np.asarray(  # noqa: E731
+        a, dtype=np.uint64).reshape(-1)]
+    refs = {"degree_bits": int(common.degree_bits()),
+            "circuit_digest": ints(payload["prover_only"]["circuit_digest"]),
+            "constants_sigmas_cap": [ints(d) for d in payload[
+                "verifier_only"].constants_sigmas_cap.digests],
+            "root": ints(payload["extra"][1])}
+    return common, refs
+
+
+def flagship_common():
+    """The flagship circuit's CommonCircuitData (``flagship_pickle``)."""
+    return flagship_pickle()[0]
 
 
 def write_flagship_program(path: str = FLAGSHIP_NPZ):
-    """Regenerate the committed program file from the JAX compiler (needs
-    JAX and the tracked pickle):
+    """Regenerate the committed program file, with the circuit's shape and
+    gate ids, from the JAX compiler (needs JAX and the tracked pickle):
 
         JAX_PLATFORMS=cpu python -c "from tests.test_torch_quotient import \\
             write_flagship_program as w; w()"
@@ -70,8 +91,24 @@ def write_flagship_program(path: str = FLAGSHIP_NPZ):
     common = flagship_common()
     prog = build_quotient_program(common)
     port = cp.program_from_arrays(prog)
-    cp.save(path, port, CircuitShape.from_common(common))
+    cp.save(path, port, CircuitShape.from_common(common),
+            gate_ids=[g.id() for g in common.gates])
     return prog, port
+
+
+def write_flagship_reference(path: str = FLAGSHIP_JSON):
+    """Regenerate the committed reference values of the flagship circuit
+    (``flagship_pickle``), which chip_smoke.py holds the port's build of
+    the flagship against:
+
+        JAX_PLATFORMS=cpu python -c "from tests.test_torch_quotient import \\
+            write_flagship_reference as w; w()"
+    """
+    refs = flagship_pickle()[1]
+    with open(path, "w") as f:
+        json.dump(refs, f, indent=1)
+        f.write("\n")
+    return refs
 
 
 def _assert_programs_equal(a, b):
@@ -96,6 +133,22 @@ def test_flagship_program_file_matches_jax_compiler(tmp_path):
                                          dtype=np.uint64)]
     np.testing.assert_array_equal(stored.scalar_bank(scal),
                                   prog.scalar_bank(scal))
+
+
+def test_flagship_reference_file_matches_pickle():
+    """The committed reference values of the flagship circuit and the
+    program file's gate ids equal the pinned pickle's (what chip_smoke.py
+    holds the port's build of the flagship against)."""
+    assert os.path.getsize(FLAGSHIP_JSON) < 8_000
+    with open(FLAGSHIP_JSON) as f:
+        stored = json.load(f)
+    common, refs = flagship_pickle()
+    assert stored == refs
+    assert (stored["degree_bits"], len(stored["constants_sigmas_cap"])) == \
+        (18, 16)
+    assert all(0 <= x < P for x in stored["circuit_digest"] + stored["root"])
+    assert cp.load_gate_ids(FLAGSHIP_NPZ) == tuple(g.id()
+                                                   for g in common.gates)
 
 
 def random_program(seed: int, n_in: int = 7, n_ops: int = 300,
