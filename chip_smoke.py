@@ -26,8 +26,11 @@ whole proof after the witness:
   its constants-sigmas commitment on the card), its circuit digest, cap
   and root held equal to the JAX package's pinned circuit
   (plonk/programs/hash_tree_wide_ecc_k17.json), then
-  ProverSession.prove from the port's own host witness (cold and warm)
-  and the port's verifier on every proof and on a corrupted copy.
+  ProverSession.prove (cold and warm), whose witness the device witness
+  plan generates on the card (iop/device_witness.py; kernel K7 runs its
+  Poseidon waves), the plan's witness held equal to the host engine's,
+  every proof equal to the pinned flagship proof (sha256), and the port's
+  verifier on every proof and on a corrupted copy.
 
 The script builds the kernels from csrc/ with nvcc (one process per
 source, in parallel), holds each kernel, in each of its forms (K3 and K5
@@ -91,7 +94,11 @@ ARITY_BITS = 4
 FINAL_POLY_BITS = 5
 PUBLIC_INPUT_WIRES = ((0, 0), (1, 0), (2, 0), (3, 0))
 REDUCED_LOG_N = 10              # the card-vs-CPU proof
-# the flagship circuit built by the port (phase 9b): 2^17 leaves, 2^18 rows
+# the flagship circuit built by the port (phase 9b): 2^17 leaves, 2^18 rows;
+# its proof from random.Random(0), as every build of the port since it
+# first proved the flagship has made it
+FLAGSHIP_PROOF_SHA256 = ("d3654cf0751d606f8cd0f5143e6d2ab447cbeee73c07aa59768"
+                         "08c9728ec749d")
 SESSION_LOG2_LEAVES = 17
 FLAGSHIP_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "plonky2_tpu_torch", "plonk", "programs",
@@ -150,6 +157,9 @@ TPU_KERNELS = {
     "K5": ("K5 ntt_cols_dif", "plonky2_tpu/ops/ntt_pallas.py:243"),
     "K6": ("K6 constraint_program",
            "plonky2_tpu/plonk/constraint_program.py:459"),
+    # port-only: the JAX package computes it in XLA, with no Pallas kernel
+    "K7": ("K7 poseidon_wires (port-only)",
+           "plonky2_tpu/hash/poseidon_wires_jax.py:153"),
 }
 NTT_CU = "plonky2_tpu_torch/csrc/ntt.cu"
 KERNELS = {
@@ -167,16 +177,20 @@ KERNELS = {
     "plk_ntt_rows_dif": ("K5", "ntt_rows_dif (in place)", NTT_CU),
     "plk_constraint_program": ("K6", "constraint_program",
                                "plonky2_tpu_torch/csrc/constraint_program.cu"),
+    "plk_poseidon_wires": ("K7", "poseidon_wires",
+                           "plonky2_tpu_torch/csrc/poseidon.cu"),
 }
 # the kernels each main path runs
 COMMIT_PATH = ("plk_hash_leaves", "plk_compress_level", "plk_compress_tail",
                "plk_ntt_cols_dit", "plk_ntt_rows_dit", "plk_ntt_cols_dif",
                "plk_ntt_rows_dif")
-QUOTIENT_PATH = tuple(KERNELS)
+QUOTIENT_PATH = tuple(e for e in KERNELS if e != "plk_poseidon_wires")
 OPENING_PATH = COMMIT_PATH
 # a proof does not run K4: the quotient gathers its inputs from the
 # commitments' leaves; phase 6 runs the natural-order LDE beside the round
-PROVE_PATH = tuple(e for e in KERNELS if e != "plk_ntt_cols_zero_tail")
+PROVE_PATH = tuple(e for e in QUOTIENT_PATH if e != "plk_ntt_cols_zero_tail")
+# the session's proof generates its witness too (K7)
+SESSION_PATH = PROVE_PATH + ("plk_poseidon_wires",)
 
 
 def kernel_label(entry: str) -> str:
@@ -312,6 +326,12 @@ def launch_cost(name: str, args) -> tuple:
         parents = tail_parents(a["m0"], a["n_levels"])
         return (8 * (8 * a["m0"] + 4 * parents), parents * PERM_MULS,
                 parents * PERM_FP64_FMAS)
+    if name == "plk_poseidon_wires":
+        # a row's 13 inputs (values and indices) read and 122 wires
+        # (values and indices) written; its permutation and 4 deltas
+        G = a["G"]
+        return (G * (8 + 4) * (13 + 122), G * (PERM_MULS + 4 * FIELD_MUL_MULS),
+                G * PERM_FP64_FMAS)
     if name == "plk_constraint_program":
         # the linear form's 64x64 products on every lane; the input rows it
         # reads read once and its outputs written once, plus its op stream,
@@ -401,6 +421,7 @@ def phase_kernels(dev) -> dict:
     from plonky2_tpu_torch.ops import ntt_cuda as nc
     from plonky2_tpu_torch.plonk import constraint_program as cp
     from plonky2_tpu_torch.plonk import constraint_program_cuda as cpc
+    import torch
     rng = np.random.default_rng(SEED + 1)
     res = {}
 
@@ -549,7 +570,47 @@ def phase_kernels(dev) -> dict:
                 f"random program W={W}, in-wave register reuse",
                 lambda: cpc.run_program_cuda(small, inputs, sbank),
                 lambda: small.run_plain(inputs, sbank))
+    # K7 writes its wave into a slot buffer in place; a second run writes
+    # the same values (a wave reads no slot it writes), so the warm-up
+    # call leaves the result unchanged.  The flagship's waves run from 2^16
+    # rows down to 1; swap wires all 0, all 1, mixed, and 2 in one row.
+    from plonky2_tpu_torch.hash import poseidon_wires as pw
+    for G, swap, bad in ((1 << 14, None, False), (1 << 14, 0, False),
+                         (1 << 14, 1, False), (1, 1, False),
+                         (33, None, False), (33, None, True)):
+        values, dep, out = wave_buffer(rng, G, swap, dev)
+        if bad:
+            values[dep[12, 5]] = 2
+        kv, pv = values.clone(), values.clone()
+        ek, ep = (torch.zeros(1, dtype=torch.int32, device=dev)
+                  for _ in range(2))
+        compare("plk_poseidon_wires",
+                f"G={G} swap={'mixed' if swap is None else swap}"
+                + (", 2 in one row" if bad else "") + ", boundary inputs",
+                lambda: (pc.poseidon_wires_cuda(kv, dep, out, ek), kv)[1],
+                lambda: (pw.poseidon_wires(pv, dep, out, ep), pv)[1],
+                timed=G == 1 << 14 and swap is None)
+        check(bool(ek.item()) == bool(ep.item()) == bad,
+              "K7's swap flag differs from its plain version's")
     return res
+
+
+def wave_buffer(rng, G, swap, dev):
+    """A slot buffer holding a Poseidon wave of G rows at scattered slots:
+    (values, dep_idx (13, G), out_idx (122, G)).  Odd rows take boundary
+    inputs; swap wires `swap`, or 0 and 1 at random when None."""
+    import torch
+    from plonky2_tpu_torch.field.convert import from_u64
+    from plonky2_tpu_torch.field.goldilocks import P
+    n_slots = 135 * G + 7
+    slots = rng.permutation(n_slots)[:135 * G].astype(np.int32)
+    dep, out = slots[:13 * G].reshape(13, G), slots[13 * G:].reshape(122, G)
+    buf = rng.integers(0, P, size=n_slots, dtype=np.uint64)
+    buf[dep[:12, 1::2]] = np.array(BOUNDARY, dtype=np.uint64)[
+        rng.integers(0, len(BOUNDARY), size=(12, G // 2))]
+    buf[dep[12]] = rng.integers(0, 2, size=G) if swap is None else swap
+    return (from_u64(buf, dev), torch.from_numpy(dep).to(dev),
+            torch.from_numpy(out).to(dev))
 
 
 def phase_narrow_levels(dev) -> dict:
@@ -658,7 +719,8 @@ def wrappers() -> dict:
             "plk_ntt_cols_zero_tail": nc.ntt_cols_zero_tail_cuda,
             "plk_ntt_cols_dif": nc.ntt_cols_dif_cuda,
             "plk_ntt_rows_dif": nc.ntt_rows_dif_cuda,
-            "plk_constraint_program": cpc.run_program_cuda}
+            "plk_constraint_program": cpc.run_program_cuda,
+            "plk_poseidon_wires": pc.poseidon_wires_cuda}
 
 
 def reset_launch_counts():
@@ -1534,10 +1596,14 @@ def phase_session(dev) -> dict:
     CircuitConfig.wide_ecc_config() (2^18 rows, the constants-sigmas
     commitment on the card; launches counted), its circuit digest, cap and
     root held equal to the JAX package's pinned circuit (FLAGSHIP_REF);
-    then ProverSession.prove from its own host witness, one cold run
-    (counted) and WARM_RUNS warm runs (timed per kernel), each from
-    random.Random(0), so all give one proof; every proof verified with the
-    port's verifier, and a copy with one opened value changed rejected."""
+    then ProverSession.prove, one cold run (counted; it builds the device
+    witness plan, stage "witness plan") and WARM_RUNS warm runs (timed per
+    kernel), each from random.Random(0), so all give one proof, the pinned
+    FLAGSHIP_PROOF_SHA256.  Every run's witness must come from the plan
+    (stage "device witness", K7 launched; the host engine's stage
+    "witness" absent), and the plan's wires once equal the host engine's
+    full_witness(); every proof verified with the port's verifier, and a
+    copy with one opened value changed rejected."""
     import collections
     import copy
     import hashlib
@@ -1607,6 +1673,10 @@ def phase_session(dev) -> dict:
     def run(timer):
         return sess.prove(pw, rng=random.Random(0), timing=timer)
 
+    def witness_s(timer):
+        return sum(timer.ms.get(k, 0.0) for k in (
+            "witness plan", "device witness", "witness")) / 1e3
+
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     runs = []
@@ -1620,30 +1690,43 @@ def phase_session(dev) -> dict:
             wall = time.perf_counter() - t
         if not i:
             launches = read_launch_counts()
-            for entry in PROVE_PATH:
+            for entry in SESSION_PATH:
                 check(launches[entry] > 0,
                       f"{entry} was not launched by ProverSession.prove")
+            check("witness plan" in timer.ms, "the cold proof built no "
+                  "witness plan")
+        else:
+            check("plk_poseidon_wires" in rec.ms_by_kernel()
+                  and "witness plan" not in timer.ms,
+                  "a warm proof did not run the kept plan's K7 waves")
+        check("device witness" in timer.ms and "witness" not in timer.ms,
+              "the flagship's witness did not come from the device plan")
         check(proof.public_inputs == ref["root"], "public inputs != root")
         t = time.perf_counter()
         sess.verify(proof)
         verify_s = time.perf_counter() - t
         blob = serialize_proof(proof)
-        wit = timer.ms["witness"] / 1e3
+        wit = witness_s(timer)
         runs.append({"wall_s": wall, "witness_s": wit, "verify_s": verify_s,
                      "stages_ms": timer.ms, "bytes": len(blob),
                      "sha256": hashlib.sha256(blob).hexdigest(),
                      "kernel_ms": rec.ms_by_kernel() if rec else None,
                      "records": rec.records if rec else None})
         log(f"  prove {'cold' if not i else 'warm'}: {wall:.4f} s, without "
-            f"the witness {wall - wit:.4f} s (witness {wit:.3f} s); verify "
+            f"the witness {wall - wit:.4f} s (witness {wit:.4f} s: "
+            + ", ".join(f"{k} {timer.ms[k]:.3f} ms" for k in (
+                "witness plan", "device witness") if k in timer.ms)
+            + f"); verify "
             f"{verify_s:.3f} s; proof {len(blob)} bytes, sha256 "
             f"{runs[-1]['sha256']}; host RSS peak {host_rss_gib()[1]:.2f} "
             "GiB")
     peak = torch.cuda.max_memory_allocated()
     log_stages(timer, runs[-1]["wall_s"])
     profile = profile_run(lambda: run(None))
-    check(len({r["sha256"] for r in runs}) == 1,
-          "proofs from one seed differ")
+    check({r["sha256"] for r in runs} == {FLAGSHIP_PROOF_SHA256},
+          "the session's proofs differ from the pinned flagship proof")
+    log(f"  every proof's sha256 is the pinned {FLAGSHIP_PROOF_SHA256}")
+    plan_check = check_plan_witness(sess, pw, dev)
     bad = copy.deepcopy(proof)
     bad.proof.openings.wires[0, 0] = (int(bad.proof.openings.wires[0, 0])
                                       + 1) % (2**64 - 2**32 + 1)
@@ -1674,8 +1757,41 @@ def phase_session(dev) -> dict:
                "warm_s": [r["wall_s"] for r in warm], "launches": launches,
                "kernel_ms": kernel_ms, "cost": cost, "peak_bytes": peak,
                "runs": runs, "session_s": session_s, "profile": profile,
-               "generators": dict(classes), "host_rss_gib": host_rss_gib()}
+               "generators": dict(classes), "host_rss_gib": host_rss_gib(),
+               "plan_check": plan_check}
     return {"build": build, "session": session}
+
+
+def check_plan_witness(sess, pw, dev) -> dict:
+    """The session's kept witness plan against the host engine
+    (iop/generator.py) on one random.Random(0) stream: the same
+    (num_wires, degree) wires, byte for byte, and the same public
+    inputs."""
+    import random
+    import torch
+    from plonky2_tpu_torch.field.convert import to_u64
+    from plonky2_tpu_torch.iop.device_witness import get_plan
+    from plonky2_tpu_torch.iop.generator import generate_partial_witness
+    po, common = sess.data.prover_only, sess.data.common
+    plan = get_plan(po, common, pw, sess.device)
+    check(plan is not None and plan.matches(pw), "no kept witness plan")
+    waves = [(w.cls.__name__, int(w.dep.shape[-1])) for w in plan.waves]
+    log(f"  witness plan: {len(waves)} waves (class, rows) {waves}; "
+        f"{plan.n_slots} slots, {len(plan._prefix_gens)} random wires")
+    wires, pis = plan.run(pw, random.Random(0))
+    torch.cuda.synchronize()
+    check(wires.device.type == dev.type, "the plan ran off the card")
+    t = time.perf_counter()
+    host = generate_partial_witness(pw, po, common, rng=random.Random(0))
+    host_wires = host.full_witness()
+    host_s = time.perf_counter() - t
+    check(np.array_equal(to_u64(wires), host_wires),
+          "the plan's wires differ from the host engine's")
+    check(pis == host.get_targets(po.public_inputs),
+          "the plan's public inputs differ from the host engine's")
+    log(f"  the plan's wires ({tuple(wires.shape)}) equal the host engine's "
+        f"full_witness() byte for byte (host engine {host_s:.3f} s)")
+    return {"waves": waves, "n_slots": plan.n_slots, "host_engine_s": host_s}
 
 
 def phase_probes(dev) -> dict:
@@ -1856,7 +1972,8 @@ def main() -> int:
             for k, p in paths.items()}
         for k, p in paths.items():
             for f in ("stages_ms", "merkle_levels", "host", "k2_before",
-                      "runs", "session_s", "generators", "host_rss_gib"):
+                      "runs", "session_s", "generators", "host_rss_gib",
+                      "plan_check"):
                 if f in p:
                     line["paths"][k][f] = p[f]
     with phase("11 int32 multiply rate and field-product SASS"):

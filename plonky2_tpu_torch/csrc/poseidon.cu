@@ -1,4 +1,5 @@
-// Kernels K1 and K2: the Poseidon-12 leaf sponge and the Merkle levels.
+// Kernels K1 and K2: the Poseidon-12 leaf sponge and the Merkle levels;
+// K7 (at the end): a wave of the Poseidon gate's witness.
 //
 // K1 replaces plonky2_tpu/hash/poseidon_pallas.py:hash_leaves_cols_pallas,
 // K2 replaces plonky2_tpu/hash/poseidon_pallas.py:compress_pairs_cols_pallas
@@ -143,38 +144,32 @@ __device__ __forceinline__ uint64_t dot_reduce(const Dot& d) {
   return r < t ? out - gl::EPS : out;
 }
 
-// The fast schedule's 22 partial rounds, from the state after the initial
-// matrix (plonky2 mds_partial_layer_fast).
-__device__ __forceinline__ void partial_rounds(uint64_t s[WIDTH]) {
-#pragma unroll 1
-  for (int r = 0; r < 22; r++) {
-    // the constant after the S-box is 0 in the last round
-    const uint64_t s0 = gl::add_nc(sbox(s[0]), PLK_FAST_PRC[r]);
-    Dot d;
-    uint64_t lo, hi;
-    gl::mul_wide_split(s0, PLK_FAST_MS0, lo, hi);
-    dot_init(d, lo, hi);
+// Partial round r of the fast schedule (plonky2 mds_partial_layer_fast).
+__device__ __forceinline__ void partial_round(uint64_t s[WIDTH], int r) {
+  // the constant after the S-box is 0 in the last round
+  const uint64_t s0 = gl::add_nc(sbox(s[0]), PLK_FAST_PRC[r]);
+  Dot d;
+  uint64_t lo, hi;
+  gl::mul_wide_split(s0, PLK_FAST_MS0, lo, hi);
+  dot_init(d, lo, hi);
 #pragma unroll
-    for (int i = 1; i < WIDTH; i++) dot_add(d, s[i], PLK_FAST_WHAT[r * 11 + i - 1]);
+  for (int i = 1; i < WIDTH; i++) dot_add(d, s[i], PLK_FAST_WHAT[r * 11 + i - 1]);
 #pragma unroll
-    for (int i = 1; i < WIDTH; i++) {
-      // s[i] + s0 * v < 2^128, reduced once.  The product in the addend
-      // form: its multiply-pipe cycles balance the dot products'
-      // integer-ALU ones (2% faster, PERF.md).
-      gl::mul_wide(s0, PLK_FAST_VS[r * 11 + i - 1], lo, hi);
-      lo += s[i];
-      hi += lo < s[i] ? 1 : 0;
-      s[i] = gl::reduce128_cc(lo, hi);
-    }
-    s[0] = dot_reduce(d);
+  for (int i = 1; i < WIDTH; i++) {
+    // s[i] + s0 * v < 2^128, reduced once.  The product in the addend
+    // form: its multiply-pipe cycles balance the dot products'
+    // integer-ALU ones (2% faster, PERF.md).
+    gl::mul_wide(s0, PLK_FAST_VS[r * 11 + i - 1], lo, hi);
+    lo += s[i];
+    hi += lo < s[i] ? 1 : 0;
+    s[i] = gl::reduce128_cc(lo, hi);
   }
+  s[0] = dot_reduce(d);
 }
 
-__device__ void permute(uint64_t s[WIDTH]) {
-#pragma unroll 1
-  for (int r = 0; r < 4; r++) full_round(s, r);
-  // first partial-round constant, then the initial matrix (row and column
-  // 0 pass s[0] through)
+// The first partial-round constant, then the initial matrix (row and
+// column 0 pass s[0] through): the state the 22 partial rounds start from.
+__device__ __forceinline__ void initial_layer(uint64_t s[WIDTH]) {
 #pragma unroll
   for (int i = 0; i < WIDTH; i++) s[i] = gl::add_nc(s[i], PLK_FAST_FIRST[i]);
   uint64_t t[WIDTH];
@@ -189,7 +184,14 @@ __device__ void permute(uint64_t s[WIDTH]) {
   }
 #pragma unroll
   for (int i = 0; i < WIDTH; i++) s[i] = t[i];
-  partial_rounds(s);
+}
+
+__device__ void permute(uint64_t s[WIDTH]) {
+#pragma unroll 1
+  for (int r = 0; r < 4; r++) full_round(s, r);
+  initial_layer(s);
+#pragma unroll 1
+  for (int r = 0; r < 22; r++) partial_round(s, r);
 #pragma unroll 1
   for (int r = 26; r < 30; r++) full_round(s, r);
 }
@@ -471,6 +473,88 @@ compress_tail_kernel(const uint64_t* in, uint64_t* out, int64_t m0, int n_levels
   }
 }
 
+// ---------------------------------------------------------------------------
+// K7: a wave of the Poseidon gate's witness (port-only).  The JAX package
+// computes it in XLA, with no Pallas kernel (plonky2_tpu/hash/
+// poseidon_wires_jax.py:poseidon_wire_batch); its plain version here is
+// hash/poseidon_wires.py:poseidon_wires.  Row g of a wave reads its 12
+// inputs and its swap wire from the witness plan's slot buffer at
+// dep_idx[k * G + g] (a (13, G) int32 array: neighbouring threads read
+// neighbouring indices), runs the permutation and writes the gate's 122
+// other wires at out_idx[k * G + g], in PoseidonGenerator.output_targets'
+// order: 4 deltas, the S-box inputs of full rounds 1-3 (36), of the 22
+// partial rounds and of the last 4 full rounds (48), then the 12 outputs.
+// A swap wire that is not 0 or 1 sets *err (the plan raises).
+//
+// Bound on an H100: integer operations on a wide wave (K1's ~4.1k products
+// a row against ~1.6 kB of gathers, scatters and indices), one
+// permutation's latency on the narrow waves near a tree's root.
+//
+// Design: the first version, one thread a row, K1's round code (full
+// rounds with the float64 MDS, the initial layer, the partial rounds with
+// 160-bit dot accumulators) with every recorded value taken through
+// gl::canon, because each is a witness wire: a full round's S-box inputs
+// are its state after the constant layer, a partial round's is s[0]
+// before its S-box.  No temporaries: the gathers and scatters go straight
+// to the slot buffer.  Within a wave no row reads a slot that another row
+// writes (the plan's waves are built that way), so the rows are
+// independent.
+constexpr int WIRE_OUTPUTS = 122;
+
+__global__ void __launch_bounds__(THREADS, 1)
+poseidon_wires_kernel(uint64_t* values, const int32_t* __restrict__ dep_idx,
+                      const int32_t* __restrict__ out_idx, int64_t G, int* err) {
+  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= G) return;
+  uint64_t s[WIDTH];
+#pragma unroll
+  for (int j = 0; j < WIDTH; j++) s[j] = values[dep_idx[j * G + g]];
+  const uint64_t swap = values[dep_idx[WIDTH * G + g]];
+  if (swap > 1) *err = 1;
+  const int32_t* out = out_idx + g;
+  auto put = [&](int k, uint64_t v) { values[out[k * G]] = v; };
+#pragma unroll
+  for (int i = 0; i < 4; i++) put(i, gl::mul(swap, gl::sub(s[i + 4], s[i])));
+  if (swap == 1) {
+#pragma unroll
+    for (int i = 0; i < 4; i++) {
+      const uint64_t t = s[i];
+      s[i] = s[i + 4];
+      s[i + 4] = t;
+    }
+  }
+#pragma unroll 1
+  for (int r = 0; r < 4; r++) {
+#pragma unroll
+    for (int i = 0; i < WIDTH; i++) s[i] = gl::add_nc(s[i], PLK_RC[r * WIDTH + i]);
+    if (r > 0) {
+#pragma unroll
+      for (int i = 0; i < WIDTH; i++) put(4 + WIDTH * (r - 1) + i, gl::canon(s[i]));
+    }
+#pragma unroll
+    for (int i = 0; i < WIDTH; i++) s[i] = sbox(s[i]);
+    mds(s);
+  }
+  initial_layer(s);
+#pragma unroll 1
+  for (int r = 0; r < 22; r++) {
+    put(40 + r, gl::canon(s[0]));
+    partial_round(s, r);
+  }
+#pragma unroll 1
+  for (int r = 0; r < 4; r++) {
+#pragma unroll
+    for (int i = 0; i < WIDTH; i++) s[i] = gl::add_nc(s[i], PLK_RC[(26 + r) * WIDTH + i]);
+#pragma unroll
+    for (int i = 0; i < WIDTH; i++) put(62 + WIDTH * r + i, gl::canon(s[i]));
+#pragma unroll
+    for (int i = 0; i < WIDTH; i++) s[i] = sbox(s[i]);
+    mds(s);
+  }
+#pragma unroll
+  for (int i = 0; i < WIDTH; i++) put(WIRE_OUTPUTS - WIDTH + i, gl::canon(s[i]));
+}
+
 }  // namespace
 
 extern "C" int plk_hash_leaves(const void* in, void* out, long long L, long long N, int device,
@@ -517,6 +601,17 @@ extern "C" int plk_compress_tail(const void* in, void* out, long long m0, int n_
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(TAIL_THREADS), args, 0,
                                     (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int plk_poseidon_wires(void* values, const void* dep_idx, const void* out_idx,
+                                  long long G, void* err, int device, void* stream) {
+  cudaError_t err_ = cudaSetDevice(device);
+  if (err_ != cudaSuccess) return (int)err_;
+  if (G == 0) return 0;
+  unsigned blocks = (unsigned)((G + THREADS - 1) / THREADS);
+  poseidon_wires_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (uint64_t*)values, (const int32_t*)dep_idx, (const int32_t*)out_idx, (int64_t)G, (int*)err);
   return (int)cudaGetLastError();
 }
 

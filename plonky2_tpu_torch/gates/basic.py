@@ -99,6 +99,18 @@ class ArithmeticBaseGenerator(SimpleGenerator):
         val = gl.add(gl.mul(gl.mul(m0, m1), c0), gl.mul(ad, c1))
         return val[:, None]
 
+    @classmethod
+    def device_meta(cls, gens):
+        return np.array([[g.const_0 for g in gens],
+                         [g.const_1 for g in gens]], dtype=np.uint64)
+
+    @classmethod
+    def run_batch_device(cls, meta, values, dep, out, err):
+        from ..field import gf
+        m0, m1, ad = values[dep]
+        values[out[0]] = gf.add(gf.mul(gf.mul(m0, m1), meta[0]),
+                                gf.mul(ad, meta[1]))
+
     def run_once(self, witness, out):
         m0, m1, addend = witness.get_targets(self.dependencies())
         val = (m0 * m1 % gl.P * self.const_0 + addend * self.const_1) % gl.P

@@ -167,6 +167,9 @@ def _output_columns() -> np.ndarray:
 
 
 OUTPUT_WIRES = _output_columns()
+# the wire of each of run_batch's inputs, in dependencies' order
+DEP_WIRES = np.array([wire_input(i) for i in range(WIDTH)] + [WIRE_SWAP],
+                     dtype=np.int64)
 
 
 class PoseidonGenerator(SimpleGenerator):
@@ -184,6 +187,12 @@ class PoseidonGenerator(SimpleGenerator):
 
     def output_targets(self):
         return [("w", self.row, int(c)) for c in OUTPUT_WIRES]
+
+    @classmethod
+    def target_indices(cls, gens, num_wires, degree):
+        rows = np.fromiter((g.row for g in gens), dtype=np.int64,
+                           count=len(gens))[:, None] * num_wires
+        return rows + DEP_WIRES, rows + OUTPUT_WIRES
 
     @classmethod
     def run_batch(cls, gens, dep_vals):
@@ -216,6 +225,14 @@ class PoseidonGenerator(SimpleGenerator):
             state = pos._mds_np(state)
         cols.append(state)
         return np.concatenate(cols, axis=1)
+
+    @classmethod
+    def run_batch_device(cls, meta, values, dep, out, err):
+        """A wave of rows on the device witness plan's slot buffer: kernel
+        K7 on a CUDA tensor, its plain version on a CPU one
+        (hash/poseidon_cuda.py:poseidon_wires_cuda)."""
+        from ..hash.poseidon_cuda import poseidon_wires_cuda
+        poseidon_wires_cuda(values, dep, out, err)
 
     def run_once(self, witness, out):
         alg = ScalarBase()

@@ -1,4 +1,5 @@
-"""Wrappers for kernels K1 (leaf sponge) and K2 (Merkle levels).
+"""Wrappers for kernels K1 (leaf sponge), K2 (Merkle levels) and K7 (a
+wave of the Poseidon gate's witness).
 
 K1 replaces plonky2_tpu/hash/poseidon_pallas.py:hash_leaves_cols_pallas and
 K2 replaces poseidon_pallas.py:compress_pairs_cols_pallas, in two forms: one
@@ -9,6 +10,10 @@ for K1 and a wide level, the latency of one permutation a level for the
 narrow top) and the designs.  Each wrapper takes the plain version beside it
 (hash/poseidon.py) for a CPU tensor only; a CUDA tensor launches the kernel
 or the call raises.  ``<wrapper>.launches`` counts kernel launches.
+
+K7 has no TPU kernel to replace (the JAX package computes it in XLA:
+plonky2_tpu/hash/poseidon_wires_jax.py:poseidon_wire_batch); its plain
+version is hash/poseidon_wires.py:poseidon_wires.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import torch
 
 from .. import kernels
 from . import poseidon as pos
+from . import poseidon_wires as pw
 
 
 def hash_leaves_cols_cuda(leaves: torch.Tensor) -> torch.Tensor:
@@ -91,3 +97,41 @@ def compress_tail_cuda(level: torch.Tensor, n_levels: int) -> list:
 
 
 compress_tail_cuda.launches = 0
+
+
+def _check_index(t, name: str, rows: int, G: int, device) -> None:
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
+        raise TypeError(f"{name}: expected an int32 tensor")
+    if tuple(t.shape) != (rows, G):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{(rows, G)}")
+    if t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor on {device}")
+
+
+def poseidon_wires_cuda(values: torch.Tensor, dep_idx: torch.Tensor,
+                        out_idx: torch.Tensor, err: torch.Tensor) -> None:
+    """K7, in place: the G rows of a Poseidon wave read their 12 inputs and
+    swap wire at values[dep_idx] (int32, (13, G)) and write their 122 wires
+    at values[out_idx] (int32, (122, G)); err (int32, (1,)) becomes nonzero
+    if a swap wire is not 0 or 1."""
+    kernels.check_field_tensor(values, "values", ndim=1)
+    G = dep_idx.shape[-1]
+    dev = values.device
+    _check_index(dep_idx, "dep_idx", pw.WIDTH + 1, G, dev)
+    _check_index(out_idx, "out_idx", pw.NUM_OUTPUT_WIRES, G, dev)
+    if (not isinstance(err, torch.Tensor) or err.dtype != torch.int32
+            or tuple(err.shape) != (1,) or err.device != dev):
+        raise ValueError(f"err: expected an int32 tensor of shape (1,) on "
+                         f"{dev}")
+    if kernels.on_cpu(values):
+        pw.poseidon_wires(values, dep_idx, out_idx, err)
+        return
+    kernels.check_kernel_operand(values, "values", dev)
+    kernels.call("plk_poseidon_wires", values.data_ptr(), dep_idx.data_ptr(),
+                 out_idx.data_ptr(), G, err.data_ptr(), dev.index,
+                 kernels.stream_of(values))
+    poseidon_wires_cuda.launches += 1
+
+
+poseidon_wires_cuda.launches = 0

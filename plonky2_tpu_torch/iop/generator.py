@@ -12,7 +12,10 @@ fixpoint.
   the oracle the tests hold the engine against.
 
 Batchable generator classes set ``batch_group`` and implement
-``output_targets`` and the classmethod ``run_batch(gens, dep_vals)``.
+``output_targets`` and the classmethod ``run_batch(gens, dep_vals)``.  A
+class the device witness plan (iop/device_witness.py) can run also has the
+classmethod ``run_batch_device(meta, values, dep, out, err)`` and, where
+its generators carry constants, ``device_meta(gens)``.
 
 Randomness is an argument: ``rng`` is any object with ``randrange(P)``
 (``random.Random(seed)`` gives a reproducible witness) and None draws from
@@ -22,6 +25,7 @@ seeded stream gives the JAX package's witness under the same stream.
 """
 from __future__ import annotations
 
+import itertools
 import secrets
 from typing import Dict, List, Optional, Tuple
 
@@ -52,6 +56,28 @@ class SimpleGenerator:
                   dep_vals: np.ndarray) -> np.ndarray:
         """dep_vals: (G, n_deps) uint64 -> (G, n_outputs) uint64."""
         raise NotImplementedError
+
+    @classmethod
+    def target_indices(cls, gens, num_wires: int,
+                       degree: int) -> Tuple[np.ndarray, np.ndarray]:
+        """The forest indices (iop/target.py:target_index) of the
+        dependencies and outputs of G generators of this class, as
+        (G, n_deps) and (G, n_outputs) int64; a class whose targets follow
+        from a row computes them at once."""
+        def rows(targets_of):
+            t = [[target_index(x, num_wires, degree) for x in targets_of(g)]
+                 for g in gens]
+            return np.array(t, dtype=np.int64).reshape(len(gens), len(t[0]))
+        return (rows(lambda g: g.dependencies()),
+                rows(lambda g: g.output_targets()))
+
+    # A device batch, where a class has one (iop/device_witness.py):
+    #   device_meta(gens) -> numpy uint64 constants of the G generators,
+    #     uploaded once with the plan (optional);
+    #   run_batch_device(meta, values, dep, out, err) writes the wave in
+    #     place: values is the plan's int64 slot buffer, dep (n_deps, G)
+    #     and out (n_outputs, G) int32 slot indices, meta the uploaded
+    #     constants (None without device_meta), err an int32 (1,) flag.
 
     def watch_list(self) -> List[Target]:
         return self.dependencies()
@@ -86,6 +112,14 @@ class ConstantGenerator(SimpleGenerator):
     def run_batch(cls, gens, dep_vals):
         return np.array([g.constant for g in gens], dtype=np.uint64)[:, None]
 
+    @classmethod
+    def device_meta(cls, gens):
+        return np.array([g.constant for g in gens], dtype=np.uint64)
+
+    @classmethod
+    def run_batch_device(cls, meta, values, dep, out, err):
+        values[out[0]] = meta
+
     def run_once(self, witness, out):
         out.append((("w", self.row, self.wire_index), self.constant))
 
@@ -106,6 +140,10 @@ class CopyGenerator(SimpleGenerator):
     @classmethod
     def run_batch(cls, gens, dep_vals):
         return dep_vals
+
+    @classmethod
+    def run_batch_device(cls, meta, values, dep, out, err):
+        values[out[0]] = values[dep[0]]
 
     def run_once(self, witness, out):
         out.append((self.dst, witness.get_target(self.src)))
@@ -146,43 +184,47 @@ class _GenCache:
         rep_arr = np.asarray(rep_map, dtype=np.int64)
         n = len(generators)
 
-        def t_rep(t):
-            return rep_arr[target_index(t, num_wires, degree)]
-
-        grouped: Dict[tuple, list] = {}
+        # one group a batch group, in order of first appearance (a batch
+        # group is one class, of one arity)
+        grouped: Dict[str, list] = {}
         self.gid = np.full(n, -1, dtype=np.int32)   # generator -> group
         self.slot = np.zeros(n, dtype=np.int64)     # its index in the group
+        scalars = []
         for i, g in enumerate(generators):
             bg = type(g).batch_group
             if bg is None:
-                continue
-            deps = g.dependencies()
-            outs = g.output_targets()
-            key = (bg, len(deps), len(outs))
-            grouped.setdefault(key, []).append(
-                (i, [t_rep(t) for t in deps], [t_rep(t) for t in outs]))
+                scalars.append(i)
+            else:
+                grouped.setdefault(bg, []).append(i)
         self.groups: List[_Group] = []
-        for key, members in grouped.items():
-            gidx = np.array([m[0] for m in members], dtype=np.int64)
-            dep_reps = np.array([m[1] for m in members],
-                                dtype=np.int64).reshape(len(members), key[1])
-            out_reps = np.array([m[2] for m in members],
-                                dtype=np.int64).reshape(len(members), key[2])
+        for members in grouped.values():
+            gidx = np.array(members, dtype=np.int64)
+            cls = type(generators[members[0]])
+            deps, outs = cls.target_indices([generators[i] for i in members],
+                                            num_wires, degree)
             gid = len(self.groups)
             self.gid[gidx] = gid
             self.slot[gidx] = np.arange(len(members))
-            self.groups.append(_Group(type(generators[members[0][0]]), gidx,
-                                      dep_reps, out_reps))
+            self.groups.append(_Group(cls, gidx, rep_arr[deps],
+                                      rep_arr[outs]))
+        # the scalar generators, in index order
+        self.scalar_idx = np.array(scalars, dtype=np.int64)
 
-        # the watchers of each representative, as CSR
+        # the watchers of each representative, as CSR (the lists laid out
+        # in representative order)
+        reps = np.fromiter(by_watches, dtype=np.int64, count=len(by_watches))
+        lens = np.fromiter(map(len, by_watches.values()), dtype=np.int64,
+                           count=len(by_watches))
         counts = np.zeros(len(rep_map) + 1, dtype=np.int64)
-        for r, lst in by_watches.items():
-            counts[r + 1] = len(lst)
+        counts[reps + 1] = lens
         self.w_indptr = np.cumsum(counts)
-        self.w_data = np.zeros(self.w_indptr[-1], dtype=np.int64)
-        for r, lst in by_watches.items():
-            s = self.w_indptr[r]
-            self.w_data[s:s + len(lst)] = lst
+        data = np.fromiter(itertools.chain.from_iterable(
+            by_watches.values()), dtype=np.int64, count=int(lens.sum()))
+        order = np.argsort(reps, kind="stable")
+        starts = np.cumsum(lens) - lens          # each list's place in data
+        self.w_data = data[np.repeat(starts[order], lens[order])
+                           + _ragged_arange(lens[order])] if lens.size \
+            else data
 
 
 def _get_cache(prover_data, common_data) -> _GenCache:

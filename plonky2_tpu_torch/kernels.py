@@ -67,6 +67,9 @@ SIGNATURES = {
                                ("out_operands", _P),
                                ("n_out", _I), ("n_slots", _I), ("C", _LL),
                                ("device", _I), ("stream", _P)),
+    "plk_poseidon_wires": (("values", _P), ("dep_idx", _P), ("out_idx", _P),
+                           ("G", _LL), ("err", _P), ("device", _I),
+                           ("stream", _P)),
 }
 
 

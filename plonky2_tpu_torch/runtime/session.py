@@ -4,8 +4,10 @@ reuses (the port's counterpart of plonky2_tpu/runtime/session.py).
 It holds the circuit's plonk/prover_data.py:ProverData, the quotient
 program and one plonk/prover.py:ProverContext, which takes the
 constants-sigmas commitment that CircuitBuilder.build made instead of
-committing it again.  ``prove`` runs the host witness generators
-(iop/generator.py), then the proof's phases 2-8 on the device; ``verify``
+committing it again.  ``prove`` generates the witness on the session's
+device with the circuit's witness plan (iop/device_witness.py; the host
+engine, iop/generator.py, only for a circuit the plan refuses, as in the
+JAX package's prover), then runs the proof's phases 2-8 there; ``verify``
 runs the port's verifier.
 
 With no ``program``, the session takes the shipped flagship program
@@ -22,6 +24,7 @@ import functools
 import os
 
 from .. import resolve_device
+from ..iop import device_witness as dw
 from ..iop.generator import generate_partial_witness
 from ..plonk import constraint_program as cp
 from ..plonk.circuit_shape import CircuitShape
@@ -80,11 +83,24 @@ class ProverSession:
 
     def prove(self, inputs, rng=None, timing=None):
         """The proof (a plonk.proof.ProofWithPublicInputs) of the
-        PartialWitness `inputs`; ``timing.scope(name)`` wraps each stage
-        when given, the witness as "witness"."""
+        PartialWitness `inputs`; ``rng`` draws the random wires.
+        ``timing.scope(name)`` wraps each stage when given: the witness
+        as "device witness" (the plan, built once a circuit as "witness
+        plan") or, where the plan is refused, as "witness" (the host
+        engine)."""
         timing = timing if timing is not None else NoopTiming()
-        with timing.scope("witness"):
-            witness = self.witness(inputs, rng)
+        po, common = self.data.prover_only, self.data.common
+        plan = dw.get_plan(po, common, inputs, self.device, timing=timing)
+        if plan is not None and not plan.matches(inputs):
+            # another input target set than the plan's: a plan of its own
+            plan = dw.get_plan(po, common, inputs, self.device,
+                               rebuild=True, timing=timing)
+        if plan is None:
+            with timing.scope("witness"):
+                witness = self.witness(inputs, rng)
+        else:
+            with timing.scope("device witness"):
+                witness, _ = plan.run(inputs, rng)
         return prove(self.prover_data, witness, context=self.context,
                      device=self.device, timing=timing)
 

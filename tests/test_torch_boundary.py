@@ -118,6 +118,19 @@ def test_wrappers_launch_with_declared_signatures(monkeypatch):
         assert {k: named[k] for k in shape} == shape, name
         # K5's row form runs in place on its one operand
         assert named.get("out", named.get("data")) == out.data_ptr()
+    # K7 writes its wave in place, through its index arrays
+    values = z((300,), dtype=i64)
+    dep = torch.zeros((13, 5), dtype=torch.int32)
+    out = torch.arange(122 * 5, dtype=torch.int32).reshape(122, 5) % 300
+    err = torch.zeros(1, dtype=torch.int32)
+    before = pc.poseidon_wires_cuda.launches
+    assert pc.poseidon_wires_cuda(values, dep, out, err) is None
+    assert pc.poseidon_wires_cuda.launches == before + 1
+    named = kernels.named_args(*calls[-1])
+    assert {k: named[k] for k in ("values", "dep_idx", "out_idx", "G",
+                                  "err")} == {
+        "values": values.data_ptr(), "dep_idx": dep.data_ptr(),
+        "out_idx": out.data_ptr(), "G": 5, "err": err.data_ptr()}
     assert [c[0] for c in calls] == list(kernels.SIGNATURES)
     # the zero-tail forms get their factor table, K5 without a tail none
     assert kernels.named_args(*calls[4])["factors"] is not None
@@ -245,6 +258,47 @@ def test_refused_tail_launch_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="cooperative"):
         pc.compress_tail_cuda(torch.zeros((4, 64), dtype=torch.int64), 2)
     assert pc.compress_tail_cuda.launches == before
+
+
+def test_failed_poseidon_wires_launch_raises(monkeypatch):
+    """A launch error of K7 raises: the launch is not counted, the plain
+    version does not run, and the slot buffer is not written.  Operands
+    the kernel cannot take raise before any launch."""
+    import torch
+
+    from plonky2_tpu_torch import kernels
+    from plonky2_tpu_torch.hash import poseidon_cuda as pc
+    from plonky2_tpu_torch.hash import poseidon_wires as pw
+
+    class Failing:
+        @staticmethod
+        def plk_poseidon_wires(*args):
+            return 700
+
+        @staticmethod
+        def plk_error_string(rc):
+            return b"an illegal memory access was encountered"
+
+    monkeypatch.setattr(kernels, "on_cpu", lambda t: False)
+    monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    monkeypatch.setattr(kernels, "library", lambda: Failing)
+    monkeypatch.setattr(pw, "poseidon_wires", lambda *a: pytest.fail(
+        "the plain version ran"))
+    values = torch.arange(300, dtype=torch.int64)
+    dep = torch.zeros((13, 4), dtype=torch.int32)
+    out = torch.arange(122 * 4, dtype=torch.int32).reshape(122, 4) % 300
+    err = torch.zeros(1, dtype=torch.int32)
+    before = pc.poseidon_wires_cuda.launches
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        pc.poseidon_wires_cuda(values, dep, out, err)
+    assert pc.poseidon_wires_cuda.launches == before
+    assert torch.equal(values, torch.arange(300, dtype=torch.int64))
+    for bad in ((values, dep.long(), out, err), (values, dep, out[:, :3], err),
+                (values, dep, out, err.long()),
+                (values, dep.t().contiguous().t(), out, err)):
+        with pytest.raises((TypeError, ValueError)):
+            pc.poseidon_wires_cuda(*bad)
+    assert pc.poseidon_wires_cuda.launches == before
 
 
 def test_ntt_row_forms_raise_instead_of_falling_back(monkeypatch):

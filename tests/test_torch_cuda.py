@@ -404,7 +404,7 @@ def test_build_on_card_matches_cpu(dev):
 def test_session_on_card_matches_cpu(dev):
     """ProverSession on the card and on the CPU, from the same random
     stream, give the same proof bytes, and the port's verifier accepts
-    it."""
+    it; on the card the witness plan's Poseidon waves launch K7."""
     import random
 
     from plonky2_tpu_torch.models.hash_tree import build_hash_tree_circuit
@@ -416,7 +416,9 @@ def test_session_on_card_matches_cpu(dev):
         data, pw, root = build_hash_tree_circuit(
             CircuitConfig.wide_ecc_config(), 5, device=where)
         sess = ProverSession(data, device=where)
+        before = pc.poseidon_wires_cuda.launches
         proof = sess.prove(pw, rng=random.Random(11))
+        assert (pc.poseidon_wires_cuda.launches > before) == (where == dev)
         assert proof.public_inputs == root
         sess.verify(proof)
         blobs[str(where)] = serialize_proof(proof)
@@ -433,3 +435,61 @@ def test_session_reuses_the_build_commitment_on_the_default_device(dev):
     cs = data.prover_only.constants_sigmas_commitment
     assert cs.leaves_dev.device == dev
     assert ProverSession(data).context.cs_batch is cs
+
+
+def _wave(G, seed, dev):
+    """A slot buffer with a Poseidon wave of G rows at scattered slots:
+    (values, dep_idx (13, G), out_idx (122, G)); the first half of the
+    rows take boundary inputs, the swap wires are 0 and 1 at random."""
+    rng = np.random.default_rng(seed)
+    n_slots = 135 * G + 5
+    slots = rng.permutation(n_slots)[:135 * G].astype(np.int32)
+    dep, out = slots[:13 * G].reshape(13, G), slots[13 * G:].reshape(122, G)
+    buf = rng.integers(0, P, size=n_slots, dtype=np.uint64)
+    buf[dep[:12, :G // 2]] = BOUNDARY[rng.integers(0, 5, size=(12, G // 2))]
+    buf[dep[12]] = rng.integers(0, 2, size=G)
+    return (from_u64(buf, dev), torch.from_numpy(dep).to(dev),
+            torch.from_numpy(out).to(dev))
+
+
+@pytest.mark.parametrize("G", [1, 33, (1 << 12) + 5])
+def test_poseidon_wires_kernel(dev, G):
+    """K7 writes the wave its plain version writes, word for word, and
+    flags a swap wire of 2 as the plain version does."""
+    from plonky2_tpu_torch.hash import poseidon_wires as pw
+    values, dep, out = _wave(G, G, dev)
+    for bad in (False, True):
+        if bad:
+            values[dep[12, G // 2]] = 2
+        got, want = values.clone(), values.clone()
+        e_got, e_want = (torch.zeros(1, dtype=torch.int32, device=dev)
+                         for _ in range(2))
+        before = pc.poseidon_wires_cuda.launches
+        pc.poseidon_wires_cuda(got, dep, out, e_got)
+        assert pc.poseidon_wires_cuda.launches == before + 1
+        pw.poseidon_wires(want, dep, out, e_want)
+        _equal(got, want)
+        assert bool(e_got.item()) == bool(e_want.item()) == bad
+
+
+def test_device_witness_plan_on_card_matches_host(dev):
+    """The witness plan of the hash tree of 2^5 leaves on the card: one K7
+    launch a Poseidon wave (5 levels and the public inputs' hash), and the
+    host engine's wires and public inputs from the same random stream."""
+    import random
+
+    from plonky2_tpu_torch.iop.device_witness import build_plan
+    from plonky2_tpu_torch.iop.generator import generate_partial_witness
+    from plonky2_tpu_torch.models.hash_tree import build_hash_tree_circuit
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    data, pw, root = build_hash_tree_circuit(CircuitConfig.wide_ecc_config(),
+                                             5, device=dev)
+    plan = build_plan(data.prover_only, data.common, pw, dev)
+    before = pc.poseidon_wires_cuda.launches
+    wires, pis = plan.run(pw, random.Random(5))
+    assert pc.poseidon_wires_cuda.launches == before + 6
+    assert wires.device.type == "cuda"
+    host = generate_partial_witness(pw, data.prover_only, data.common,
+                                    rng=random.Random(5))
+    np.testing.assert_array_equal(to_u64(wires), host.full_witness())
+    assert pis == host.get_targets(data.prover_only.public_inputs) == root
