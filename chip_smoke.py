@@ -28,9 +28,11 @@ whole proof after the witness:
   (plonk/programs/hash_tree_wide_ecc_k17.json), then
   ProverSession.prove (cold and warm), whose witness the device witness
   plan generates on the card (iop/device_witness.py; kernel K7 runs its
-  Poseidon waves), the plan's witness held equal to the host engine's,
+  18 Poseidon waves in one launch), the plan's witness held equal to the
+  host engine's,
   every proof equal to the pinned flagship proof (sha256), and the port's
-  verifier on every proof and on a corrupted copy.
+  verifier on every proof and on a corrupted copy; the FRI proof-of-work
+  grind of every proof runs on the card (kernel K8).
 
 The script builds the kernels from csrc/ with nvcc (one process per
 source, in parallel), holds each kernel, in each of its forms (K3 and K5
@@ -45,10 +47,12 @@ trees launch by launch.  Every phase prints a flushed line
 before it starts and when it ends; any failure raises and exits non-zero.
 The last line of standard output is the run's device summary.
 
-It also traces one warm commitment, quotient round, opening round and
-proof with torch.profiler and prints the device's busy and idle shares of
-each, times the stages of the opening round and of the proof and the
-host's Poseidon rates, and (the last phase) measures the card's rate of
+It also times K2's narrow levels and K7's 18 waves one launch each
+against one launch (phases 3b and 3c), traces one warm commitment,
+quotient round, opening round and proof with torch.profiler and prints
+the device's busy and idle shares of each, times the stages of the
+opening round and of the proof and the host transcript's permutations,
+and (the last phase) measures the card's rate of
 independent 32-bit multiplies in four instruction forms and counts the
 multiply instructions of one field product in the SASS
 (plonky2_tpu_torch/csrc/probes/).
@@ -73,6 +77,7 @@ T0 = time.perf_counter()
 # Main path: the wires commitment of the hash-tree circuit under
 # CircuitConfig.wide_ecc_config() (234 wires, 2^18 rows, rate 3, cap 4).
 NUM_POLYS = 234
+NUM_WIRES = NUM_POLYS
 LOG_N = 18
 RATE_BITS = 3
 CAP_HEIGHT = 4
@@ -157,9 +162,12 @@ TPU_KERNELS = {
     "K5": ("K5 ntt_cols_dif", "plonky2_tpu/ops/ntt_pallas.py:243"),
     "K6": ("K6 constraint_program",
            "plonky2_tpu/plonk/constraint_program.py:459"),
-    # port-only: the JAX package computes it in XLA, with no Pallas kernel
+    # port-only: the JAX package computes these in XLA, with no Pallas
+    # kernel
     "K7": ("K7 poseidon_wires (port-only)",
            "plonky2_tpu/hash/poseidon_wires_jax.py:153"),
+    "K8": ("K8 pow_grind (port-only)",
+           "plonky2_tpu/fri/device_prover.py:447"),
 }
 NTT_CU = "plonky2_tpu_torch/csrc/ntt.cu"
 KERNELS = {
@@ -177,20 +185,28 @@ KERNELS = {
     "plk_ntt_rows_dif": ("K5", "ntt_rows_dif (in place)", NTT_CU),
     "plk_constraint_program": ("K6", "constraint_program",
                                "plonky2_tpu_torch/csrc/constraint_program.cu"),
-    "plk_poseidon_wires": ("K7", "poseidon_wires",
-                           "plonky2_tpu_torch/csrc/poseidon.cu"),
+    "plk_poseidon_wires_waves": ("K7", "poseidon_wires_waves (a run of "
+                                 "waves, one launch)",
+                                 "plonky2_tpu_torch/csrc/poseidon.cu"),
+    "plk_pow_grind": ("K8", "pow_grind", "plonky2_tpu_torch/csrc/poseidon.cu"),
 }
 # the kernels each main path runs
 COMMIT_PATH = ("plk_hash_leaves", "plk_compress_level", "plk_compress_tail",
                "plk_ntt_cols_dit", "plk_ntt_rows_dit", "plk_ntt_cols_dif",
                "plk_ntt_rows_dif")
-QUOTIENT_PATH = tuple(e for e in KERNELS if e != "plk_poseidon_wires")
-OPENING_PATH = COMMIT_PATH
+QUOTIENT_PATH = tuple(e for e in KERNELS if e not in (
+    "plk_poseidon_wires_waves", "plk_pow_grind"))
+# the opening round grinds its proof of work (K8)
+OPENING_PATH = COMMIT_PATH + ("plk_pow_grind",)
 # a proof does not run K4: the quotient gathers its inputs from the
 # commitments' leaves; phase 6 runs the natural-order LDE beside the round
-PROVE_PATH = tuple(e for e in QUOTIENT_PATH if e != "plk_ntt_cols_zero_tail")
+PROVE_PATH = tuple(e for e in QUOTIENT_PATH
+                   if e != "plk_ntt_cols_zero_tail") + ("plk_pow_grind",)
 # the session's proof generates its witness too (K7)
-SESSION_PATH = PROVE_PATH + ("plk_poseidon_wires",)
+SESSION_PATH = PROVE_PATH + ("plk_poseidon_wires_waves",)
+# the flagship witness plan's Poseidon waves, 2^16 rows down to 1, then the
+# public inputs' hash (phase 3c)
+FLAGSHIP_WAVES = tuple(1 << k for k in range(16, -1, -1)) + (1,)
 
 
 def kernel_label(entry: str) -> str:
@@ -308,9 +324,11 @@ class KernelRecorder:
         return out
 
 
-def launch_cost(name: str, args) -> tuple:
+def launch_cost(name: str, args, pow_witness=None) -> tuple:
     """(bytes, int32 multiplies, float64 multiply-adds) that one launch's
-    work needs at least: each input read once, each output written once."""
+    work needs at least: each input read once, each output written once.
+    K8's work depends on the data: the permutations from its start to the
+    witness it found (`pow_witness`, which its run's proof holds)."""
     from plonky2_tpu_torch.kernels import named_args
     a = named_args(name, args)
     if name == "plk_hash_leaves":
@@ -326,12 +344,19 @@ def launch_cost(name: str, args) -> tuple:
         parents = tail_parents(a["m0"], a["n_levels"])
         return (8 * (8 * a["m0"] + 4 * parents), parents * PERM_MULS,
                 parents * PERM_FP64_FMAS)
-    if name == "plk_poseidon_wires":
+    if name == "plk_poseidon_wires_waves":
         # a row's 13 inputs (values and indices) read and 122 wires
-        # (values and indices) written; its permutation and 4 deltas
-        G = a["G"]
-        return (G * (8 + 4) * (13 + 122), G * (PERM_MULS + 4 * FIELD_MUL_MULS),
-                G * PERM_FP64_FMAS)
+        # (values and indices) written; its permutation and 4 deltas.  The
+        # run covers its R index columns (the plan's runs do).
+        G = a["R"]
+        return (G * (8 + 4) * (13 + 122) + 8 * (a["n_waves"] + 1),
+                G * (PERM_MULS + 4 * FIELD_MUL_MULS), G * PERM_FP64_FMAS)
+    if name == "plk_pow_grind":
+        # the 12 words read and the witness written; one permutation for
+        # each candidate from start up to the witness
+        check(pow_witness is not None, "K8's bound needs its witness")
+        perms = pow_witness - a["start"] + 1
+        return 8 * 12 + 8, perms * PERM_MULS, perms * PERM_FP64_FMAS
     if name == "plk_constraint_program":
         # the linear form's 64x64 products on every lane; the input rows it
         # reads read once and its outputs written once, plus its op stream,
@@ -570,47 +595,100 @@ def phase_kernels(dev) -> dict:
                 f"random program W={W}, in-wave register reuse",
                 lambda: cpc.run_program_cuda(small, inputs, sbank),
                 lambda: small.run_plain(inputs, sbank))
-    # K7 writes its wave into a slot buffer in place; a second run writes
-    # the same values (a wave reads no slot it writes), so the warm-up
-    # call leaves the result unchanged.  The flagship's waves run from 2^16
-    # rows down to 1; swap wires all 0, all 1, mixed, and 2 in one row.
+    # K7 writes its waves into a slot buffer in place; a second run writes
+    # the same values (no wave writes a slot that it or a wave before it
+    # reads), so the warm-up call leaves the result unchanged.  Chains of
+    # waves that read the wave before them (the flagship's run from 2^16
+    # rows down to 1, cut to five waves, and eight small ones), one wave
+    # of 2^16 rows, waves of 2^14 rows with every swap wire 0 or 1, swap
+    # wires mixed elsewhere, and 2 in one row of the last wave.
     from plonky2_tpu_torch.hash import poseidon_wires as pw
-    for G, swap, bad in ((1 << 14, None, False), (1 << 14, 0, False),
-                         (1 << 14, 1, False), (1, 1, False),
-                         (33, None, False), (33, None, True)):
-        values, dep, out = wave_buffer(rng, G, swap, dev)
+    for sizes, swap, bad in (((1 << 14, 1 << 10, 1 << 6, 2, 1), None, False),
+                             ((1 << 14, 1 << 10, 1 << 6, 2, 1), None, True),
+                             ((1 << 16,), None, False),
+                             ((1 << 14,), 0, False), ((1 << 14,), 1, False),
+                             ((33, 17, 9, 5, 3, 2, 1, 1), None, True),
+                             ((1,), 1, False)):
+        values, dep, out, offsets = wave_chain(rng, sizes, dev, swap)
         if bad:
-            values[dep[12, 5]] = 2
+            values[dep[12, offsets[-1] - 1]] = 2
         kv, pv = values.clone(), values.clone()
         ek, ep = (torch.zeros(1, dtype=torch.int32, device=dev)
                   for _ in range(2))
-        compare("plk_poseidon_wires",
-                f"G={G} swap={'mixed' if swap is None else swap}"
-                + (", 2 in one row" if bad else "") + ", boundary inputs",
-                lambda: (pc.poseidon_wires_cuda(kv, dep, out, ek), kv)[1],
-                lambda: (pw.poseidon_wires(pv, dep, out, ep), pv)[1],
-                timed=G == 1 << 14 and swap is None)
+        compare("plk_poseidon_wires_waves",
+                f"waves {list(sizes)} swap="
+                f"{'mixed' if swap is None else swap}"
+                + (", 2 in the last wave" if bad else "")
+                + ", boundary inputs",
+                lambda: (pc.poseidon_wires_waves_cuda(kv, dep, out, offsets,
+                                                      ek), kv)[1],
+                lambda: (pw.poseidon_wires_waves(pv, dep, out, offsets, ep),
+                         pv)[1],
+                timed=sizes == (1 << 14, 1 << 10, 1 << 6, 2, 1) and not bad)
         check(bool(ek.item()) == bool(ep.item()) == bad,
               "K7's swap flag differs from its plain version's")
+    # K8 at 0-20 bits (the witness position and the base state vary with
+    # the bits), at every position at 2 and 12 bits, from offsets, and at
+    # 1-4 bits, where many candidates of one chunk pass
+    cases = [(bits, bits % 8, 0) for bits in range(21)]
+    cases += [(bits, word, 0) for bits in (2, 12) for word in range(8)]
+    cases += [(bits, 5, start) for bits in (1, 4, 16)
+              for start in (1, 127, 128, 1000)]
+    for bits, word, start in cases:
+        base = rand_field(rng, (12,), dev)
+        base[bits % 12] = boundary_field(rng, (1,), dev)[0]
+        got = [None]
+
+        def kernel():
+            got[0] = pc.pow_grind_cuda(base, word, bits, start)
+            return torch.tensor([got[0]])
+
+        def plain():
+            return torch.tensor([pc.pow_grind(base, word, bits, start,
+                                              batch=1 << 16)])
+        compare("plk_pow_grind", f"{bits} bits, word {word}, start {start}",
+                kernel, plain, timed=(bits, word, start) == (16, 0, 0))
     return res
 
 
-def wave_buffer(rng, G, swap, dev):
-    """A slot buffer holding a Poseidon wave of G rows at scattered slots:
-    (values, dep_idx (13, G), out_idx (122, G)).  Odd rows take boundary
-    inputs; swap wires `swap`, or 0 and 1 at random when None."""
+def wave_chain(rng, sizes, dev, swap=None, rows=False):
+    """A slot buffer holding a chain of Poseidon waves of `sizes` rows:
+    (values, dep_idx (13, R), out_idx (122, R), offsets).  Row i of wave
+    j > 0 reads its words 0-3 from the outputs 0-3 of wave j - 1's row 2i
+    and its words 4-7 from row 2i + 1's (mod that wave's size), as a Merkle
+    level reads the one below, so each wave reads what other blocks wrote;
+    words 8-11 and the swap wire lie in slots of their own (odd rows
+    boundary values; swap wires `swap`, or 0 and 1 at random when None).
+    The slots lie at random (rows=False), or as the witness plan lays a
+    gate's wires: row r's wire c at slot r * 234 + c, in the Poseidon
+    gate's columns (rows=True, the flagship's 234 wires)."""
     import torch
     from plonky2_tpu_torch.field.convert import from_u64
     from plonky2_tpu_torch.field.goldilocks import P
-    n_slots = 135 * G + 7
-    slots = rng.permutation(n_slots)[:135 * G].astype(np.int32)
-    dep, out = slots[:13 * G].reshape(13, G), slots[13 * G:].reshape(122, G)
+    from plonky2_tpu_torch.gates import poseidon_gate as pg
+    R = sum(sizes)
+    if rows:
+        n_slots = NUM_WIRES * R
+        base = np.arange(R, dtype=np.int64)[None] * NUM_WIRES
+        dep = (base + pg.DEP_WIRES[:, None]).astype(np.int32)
+        out = (base + pg.OUTPUT_WIRES[:, None]).astype(np.int32)
+    else:
+        n_slots = 135 * R + 7
+        slots = rng.permutation(n_slots)[:135 * R].astype(np.int32)
+        dep = slots[:13 * R].reshape(13, R).copy()
+        out = slots[13 * R:].reshape(122, R)
     buf = rng.integers(0, P, size=n_slots, dtype=np.uint64)
     buf[dep[:12, 1::2]] = np.array(BOUNDARY, dtype=np.uint64)[
-        rng.integers(0, len(BOUNDARY), size=(12, G // 2))]
-    buf[dep[12]] = rng.integers(0, 2, size=G) if swap is None else swap
+        rng.integers(0, len(BOUNDARY), size=(12, R // 2))]
+    buf[dep[12]] = rng.integers(0, 2, size=R) if swap is None else swap
+    offsets = tuple(int(x) for x in np.cumsum((0,) + tuple(sizes)))
+    for j in range(1, len(sizes)):
+        a0, a, g0 = offsets[j - 1], offsets[j], sizes[j - 1]
+        i = np.arange(sizes[j])
+        dep[0:4, a:a + sizes[j]] = out[110:114, a0 + (2 * i) % g0]
+        dep[4:8, a:a + sizes[j]] = out[110:114, a0 + (2 * i + 1) % g0]
     return (from_u64(buf, dev), torch.from_numpy(dep).to(dev),
-            torch.from_numpy(out).to(dev))
+            torch.from_numpy(out).to(dev), offsets)
 
 
 def phase_narrow_levels(dev) -> dict:
@@ -625,7 +703,6 @@ def phase_narrow_levels(dev) -> dict:
     gap), and the threshold: the 13 levels above a (4, 2^17) level with
     the levels of more than T parents one launch each and the rest one
     narrow top, for T = 2^13 .. 2^16.  Medians of NARROW_REPS runs."""
-    import torch
     from plonky2_tpu_torch.hash import poseidon_cuda as pc
     rng = np.random.default_rng(SEED + 4)
     leaves = rand_field(rng, (NUM_POLYS, 1 << LOG_N), dev)
@@ -633,33 +710,8 @@ def phase_narrow_levels(dev) -> dict:
     top = pc.compress_level_cuda(pc.compress_level_cuda(wide))   # (4, 2^15)
     small = rand_field(rng, (4, 64), dev)
 
-    def event():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
     def timed_steps(make_steps, behind):
-        """Median over NARROW_REPS of each step's ms."""
-        runs = []
-        for _ in range(NARROW_REPS):
-            steps = make_steps()
-            torch.cuda.synchronize()
-            if behind:
-                k0 = event()
-                pc.hash_leaves_cols_cuda(leaves)
-            evs = [event()]
-            t = time.perf_counter()
-            for fn in steps:
-                fn()
-                evs.append(event())
-            host_ms = (time.perf_counter() - t) * 1e3
-            torch.cuda.synchronize()
-            if behind:
-                k1_ms = k0.elapsed_time(evs[0])
-                check(host_ms < k1_ms, f"the host took {host_ms:.3f} ms to "
-                      f"queue the steps, K1 ran {k1_ms:.3f} ms")
-            runs.append([a.elapsed_time(b) for a, b in zip(evs, evs[1:])])
-        return [float(np.median(col)) for col in zip(*runs)]
+        return timed_step_ms(make_steps, leaves if behind else None)
 
     def levels(x, n_wide, n_tail):
         """(steps, cur): n_wide per-level launches, then one narrow top;
@@ -706,6 +758,102 @@ def phase_narrow_levels(dev) -> dict:
     return res
 
 
+def _event():
+    import torch
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+
+def timed_step_ms(make_steps, leaves=None) -> list:
+    """Median over NARROW_REPS of each step's ms, between CUDA events
+    recorded between consecutive steps: queued behind K1 on `leaves`, so
+    that the host has queued every step before the card reaches them and
+    the events read device time only, or, with no leaves, host-paced on
+    an idle card.  `make_steps()` gives a fresh list of steps each time."""
+    import torch
+    from plonky2_tpu_torch.hash import poseidon_cuda as pc
+    runs = []
+    for _ in range(NARROW_REPS):
+        steps = make_steps()
+        torch.cuda.synchronize()
+        if leaves is not None:
+            k0 = _event()
+            pc.hash_leaves_cols_cuda(leaves)
+        evs = [_event()]
+        t = time.perf_counter()
+        for fn in steps:
+            fn()
+            evs.append(_event())
+        host_ms = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        if leaves is not None:
+            k1_ms = k0.elapsed_time(evs[0])
+            check(host_ms < k1_ms, f"the host took {host_ms:.3f} ms to "
+                  f"queue the steps, K1 ran {k1_ms:.3f} ms")
+        runs.append([a.elapsed_time(b) for a, b in zip(evs, evs[1:])])
+    return [float(np.median(col)) for col in zip(*runs)]
+
+
+def phase_witness_waves(dev) -> dict:
+    """K7 on the flagship plan's 18 Poseidon wave sizes (FLAGSHIP_WAVES,
+    2^16 rows down to 1, then 1), as a chain in which each wave reads the
+    one before, its wires laid out in rows as the plan lays them: each
+    wave as a launch of its own and all 18 in one launch, device time
+    (queued behind K1 on the flagship's leaves) and host-paced (medians
+    of NARROW_REPS runs; K7 writes the same values each run).
+    One permutation's latency, split over four lanes, is the device time of
+    a one-row wave alone: the latency floor of the 18 is 18 of them.  The
+    one launch must write what the 18 launches write."""
+    import torch
+    from plonky2_tpu_torch.hash import poseidon_cuda as pc
+    rng = np.random.default_rng(SEED + 5)
+    leaves = rand_field(rng, (NUM_POLYS, 1 << LOG_N), dev)
+    values, dep, out, offsets = wave_chain(rng, FLAGSHIP_WAVES, dev,
+                                           rows=True)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    n = len(FLAGSHIP_WAVES)
+
+    def run(lo, hi):
+        return lambda: pc.poseidon_wires_waves_cuda(
+            values, dep, out, offsets[lo:hi + 1], err)
+
+    def each():
+        return [run(j, j + 1) for j in range(n)]
+
+    for fn in each() + [run(0, n)]:     # uploads each run's offsets once
+        fn()
+    torch.cuda.synchronize()
+    res = {"sizes": list(FLAGSHIP_WAVES)}
+    for mode, behind in (("device", leaves), ("host-paced", None)):
+        per_wave = timed_step_ms(each, behind)
+        fused = timed_step_ms(lambda: [run(0, n)], behind)[0]
+        res[mode] = {"per_wave_ms": per_wave, "per_wave_sum_ms": sum(per_wave),
+                     "one_launch_ms": fused}
+        log(f"  {mode}: the {n} waves one launch each (rows: ms): "
+            + ", ".join(f"{g}: {ms:.4f}"
+                        for g, ms in zip(FLAGSHIP_WAVES, per_wave))
+            + f" (sum {sum(per_wave):.4f}); all {n} in one launch: "
+            f"{fused:.4f} ms")
+    ones = [ms for g, ms in zip(FLAGSHIP_WAVES, res["device"]["per_wave_ms"])
+            if g == 1]
+    res["perm_latency_ms"] = float(np.median(ones))
+    res["latency_floor_ms"] = n * res["perm_latency_ms"]
+    log(f"  one permutation over 4 lanes (a one-row wave, device time): "
+        f"{res['perm_latency_ms']:.4f} ms; the {n} waves' latency floor "
+        f"{res['latency_floor_ms']:.4f} ms")
+    e1 = torch.zeros_like(err)
+    one = values.clone()
+    pc.poseidon_wires_waves_cuda(one, dep, out, offsets, e1)
+    per = values.clone()
+    for j in range(n):
+        pc.poseidon_wires_waves_cuda(per, dep, out, offsets[j:j + 2], e1)
+    check(max_abs_err(one, per) == 0 and not e1.item(),
+          "one launch of the 18 waves differs from 18 launches")
+    log(f"  one launch writes what the {n} launches write, word for word")
+    return res
+
+
 def wrappers() -> dict:
     """C entry -> the wrapper that launches it (and counts launches)."""
     from plonky2_tpu_torch.hash import poseidon_cuda as pc
@@ -720,7 +868,8 @@ def wrappers() -> dict:
             "plk_ntt_cols_dif": nc.ntt_cols_dif_cuda,
             "plk_ntt_rows_dif": nc.ntt_rows_dif_cuda,
             "plk_constraint_program": cpc.run_program_cuda,
-            "plk_poseidon_wires": pc.poseidon_wires_cuda}
+            "plk_poseidon_wires_waves": pc.poseidon_wires_waves_cuda,
+            "plk_pow_grind": pc.pow_grind_cuda}
 
 
 def reset_launch_counts():
@@ -807,16 +956,34 @@ def timed_path(run, path, label, keep=lambda out: None):
         log(f"  {kernel_label(k)}: {ms:.3f} ms over {launches[k]} launches "
             f"(median of warm runs; {100 * ms / 1e3 / np.median(warm_s):.1f}% "
             "of the warm wall)")
-    cost = {}
-    for name, args, _, _ in recs:
-        c = cost.setdefault(name, [0, 0, 0])
-        for j, x in enumerate(launch_cost(name, args)):
-            c[j] += x
+    cost = path_cost(recs, pow_witness_of(out))
     last_run = [(name, args, s.elapsed_time(e)) for name, args, s, e in recs]
     return out, {"cold_s": cold_s, "warm_s": warm_s, "launches": launches,
                  "kernel_ms": kernel_ms, "cost": cost, "peak_bytes": peak,
                  "resident_bytes": resident, "k2_before": k2_before,
                  "last_run": last_run}
+
+
+def pow_witness_of(result):
+    """The proof-of-work witness of a path's result (an opening round's
+    (openings, FriProof), a proof), or None where it has none."""
+    for obj in result if isinstance(result, tuple) else (result,):
+        while obj is not None:
+            if hasattr(obj, "pow_witness"):
+                return obj.pow_witness
+            obj = getattr(obj, "proof", getattr(obj, "opening_proof", None))
+    return None
+
+
+def path_cost(records, pow_witness=None) -> dict:
+    """C entry -> [bytes, int32 multiplies, float64 multiply-adds] summed
+    over the launches recorded in one run."""
+    cost = {}
+    for name, args, _, _ in records:
+        c = cost.setdefault(name, [0, 0, 0])
+        for j, x in enumerate(launch_cost(name, args, pow_witness)):
+            c[j] += x
+    return cost
 
 
 def log_merkle_levels(res) -> dict:
@@ -1235,9 +1402,11 @@ class StageTimer:
 class FriSpy:
     """Keeps what the last FRI proof computed, for the checks: the
     composition's arguments and result, each fold's input, beta and
-    output, the layer trees and the query indices (wraps three functions of
-    fri/device_prover.py; launches and results are untouched)."""
-    NAMES = ("device_composition", "fold_coeffs", "fri_prover_query_rounds")
+    output, the proof of work's duplex state, witness position, bits and
+    witness, the layer trees and the query indices (wraps four functions
+    of fri/device_prover.py; launches and results are untouched)."""
+    NAMES = ("device_composition", "fold_coeffs", "fri_proof_of_work",
+             "fri_prover_query_rounds")
 
     def __enter__(self):
         from plonky2_tpu_torch.fri import device_prover as tdp
@@ -1254,6 +1423,14 @@ class FriSpy:
             self.folds.append((coeffs, beta, arity, out))
             return out
 
+        def grind(challenger, config, device):
+            state = (challenger.duplex_input_state(),
+                     len(challenger.input_buffer), config.proof_of_work_bits)
+            witness = self.orig["fri_proof_of_work"](challenger, config,
+                                                     device)
+            self.grind = state + (witness,)
+            return witness
+
         def queries(initial, trees, indices, params):
             self.initial, self.trees = initial, trees
             self.indices = list(indices)
@@ -1261,6 +1438,7 @@ class FriSpy:
                                                         indices, params)
         tdp.device_composition = composition
         tdp.fold_coeffs = fold
+        tdp.fri_proof_of_work = grind
         tdp.fri_prover_query_rounds = queries
         return self
 
@@ -1320,11 +1498,11 @@ def phase_opening_round(dev, full, quot):
             run(None, timer)
         log_stages(timer, time.perf_counter() - t)
         res["stages_ms"] = timer.ms
-        res["host"] = log_host_hashing(perms[0], proof.pow_witness)
+        res["host"] = log_host_hashing(perms[0])
         res["profile"] = profile_run(lambda: run(None))
         check(list(proof_words(run(None))) == list(proof_words(
             (openings, proof))), "two runs of the opening round differ")
-        log(f"  proof of work witness {proof.pow_witness}")
+        res["grind"] = check_grind_on_cpu(spy, proof)
         check_query_paths(spy, proof, fp)
         check_composition(spy)
         check_folds(spy, proof, fp)
@@ -1349,30 +1527,39 @@ def count_host_permutations():
         pos.permute_ints = orig
 
 
-def log_host_hashing(n_perms: int, pow_witness: int) -> dict:
-    """The host's Poseidon rates on this machine: the challenger's scalar
-    permutation and the proof-of-work grind's numpy batch."""
-    from plonky2_tpu_torch.fri.prover import POW_BATCH
+def log_host_hashing(n_perms: int) -> dict:
+    """The host transcript's permutations and their rate on this machine
+    (hash/poseidon.py:permute_ints)."""
     from plonky2_tpu_torch.hash import poseidon as pos
     state = list(range(12))
     t = time.perf_counter()
     for _ in range(200):
         pos.permute_ints(state)
     scalar_ms = (time.perf_counter() - t) * 1e3 / 200
-    batch = np.zeros((POW_BATCH, 12), dtype=np.uint64)
-    t = time.perf_counter()
-    for _ in range(3):
-        pos.poseidon(batch)
-    batch_ms = (time.perf_counter() - t) * 1e3 / 3
-    batches = pow_witness // POW_BATCH + 1
     log(f"  host: {n_perms} transcript permutations at {scalar_ms:.3f} ms "
-        f"each ({n_perms * scalar_ms:.1f} ms); the grind's numpy batch of "
-        f"{POW_BATCH}: {batch_ms:.1f} ms ({batch_ms / POW_BATCH * 1e3:.2f} us "
-        f"a permutation), {batches} batches for witness {pow_witness} "
-        f"(2^{POW_BITS} expected permutations: "
-        f"{(1 << POW_BITS) / POW_BATCH * batch_ms:.0f} ms)")
-    return {"transcript_permutations": n_perms, "scalar_ms": scalar_ms,
-            "pow_batch_ms": batch_ms, "pow_batches": batches}
+        f"each ({n_perms * scalar_ms:.1f} ms)")
+    return {"transcript_permutations": n_perms, "scalar_ms": scalar_ms}
+
+
+def check_grind_on_cpu(spy, proof) -> dict:
+    """K8's witness (the proof's) against K8's plain version on the CPU
+    from the same duplex state, position and bits; the plain version's
+    time there."""
+    from plonky2_tpu_torch.field.convert import from_u64
+    from plonky2_tpu_torch.hash import poseidon_cuda as pc
+    state, word, bits, witness = spy.grind
+    check(witness == proof.pow_witness, "the spied grind is not the proof's")
+    t = time.perf_counter()
+    plain = pc.pow_grind(from_u64(np.array(state, dtype=np.uint64)), word,
+                         bits)
+    cpu_s = time.perf_counter() - t
+    check(plain == witness, f"K8 found {witness}, its plain version on the "
+          f"CPU {plain}")
+    log(f"  proof of work: K8's witness {witness} (word {word}, {bits} "
+        f"bits) equals the plain version's on the CPU ({cpu_s:.2f} s there, "
+        f"{witness + 1} permutations)")
+    return {"witness": witness, "word": word, "bits": bits,
+            "cpu_plain_s": cpu_s}
 
 
 def log_stages(timer, wall_s):
@@ -1612,6 +1799,7 @@ def phase_session(dev) -> dict:
     from plonky2_tpu_torch.fri.verifier import FriVerificationError
     from plonky2_tpu_torch.models.hash_tree import build_hash_tree_circuit
     from plonky2_tpu_torch.plonk.config import CircuitConfig
+    from plonky2_tpu_torch.kernels import named_args
     from plonky2_tpu_torch.plonk.verifier import ProofVerificationError
     from plonky2_tpu_torch.runtime.session import ProverSession
     from plonky2_tpu_torch.utils.serialization import serialize_proof
@@ -1635,12 +1823,8 @@ def phase_session(dev) -> dict:
     for entry in COMMIT_PATH:
         check(launches[entry] > 0, f"{entry} was not launched by build()")
     build = {"cold_s": build_s, "warm_s": [build_s], "launches": launches,
-             "kernel_ms": rec.ms_by_kernel(), "cost": {},
+             "kernel_ms": rec.ms_by_kernel(), "cost": path_cost(rec.records),
              "stages_ms": build_timer.ms}
-    for name, args, _, _ in rec.records:
-        c = build["cost"].setdefault(name, [0, 0, 0])
-        for j, x in enumerate(launch_cost(name, args)):
-            c[j] += x
     common, po = data.common, data.prover_only
     rss = host_rss_gib()
     log(f"  build: {build_s:.3f} s, {common.degree()} rows, "
@@ -1693,12 +1877,17 @@ def phase_session(dev) -> dict:
             for entry in SESSION_PATH:
                 check(launches[entry] > 0,
                       f"{entry} was not launched by ProverSession.prove")
+            check(launches["plk_poseidon_wires_waves"] == 1,
+                  "the flagship's Poseidon waves took "
+                  f"{launches['plk_poseidon_wires_waves']} K7 launches")
             check("witness plan" in timer.ms, "the cold proof built no "
                   "witness plan")
         else:
-            check("plk_poseidon_wires" in rec.ms_by_kernel()
+            ms = rec.ms_by_kernel()
+            check("plk_poseidon_wires_waves" in ms and "plk_pow_grind" in ms
                   and "witness plan" not in timer.ms,
-                  "a warm proof did not run the kept plan's K7 waves")
+                  "a warm proof did not run the kept plan's K7 waves and "
+                  "the K8 grind")
         check("device witness" in timer.ms and "witness" not in timer.ms,
               "the flagship's witness did not come from the device plan")
         check(proof.public_inputs == ref["root"], "public inputs != root")
@@ -1746,11 +1935,14 @@ def phase_session(dev) -> dict:
     kernel_ms = {k: float(np.median([r["kernel_ms"].get(k, 0.0)
                                      for r in warm]))
                  for k in warm[-1]["kernel_ms"]}
-    cost = {}
-    for name, args, _, _ in warm[-1]["records"]:
-        c = cost.setdefault(name, [0, 0, 0])
-        for j, x in enumerate(launch_cost(name, args)):
-            c[j] += x
+    cost = path_cost(warm[-1]["records"], pow_witness_of(proof))
+    k7_waves = sum(named_args(n, a)["n_waves"]
+                   for n, a, _, _ in warm[-1]["records"]
+                   if n == "plk_poseidon_wires_waves")
+    log(f"  K7 on a warm proof: {k7_waves} waves, "
+        f"{kernel_ms.get('plk_poseidon_wires_waves', 0.0):.4f} ms; K8: "
+        f"{kernel_ms.get('plk_pow_grind', 0.0):.4f} ms for witness "
+        f"{pow_witness_of(proof)}")
     for r in runs:
         del r["records"], r["kernel_ms"]
     session = {"cold_s": runs[0]["wall_s"],
@@ -1758,7 +1950,7 @@ def phase_session(dev) -> dict:
                "kernel_ms": kernel_ms, "cost": cost, "peak_bytes": peak,
                "runs": runs, "session_s": session_s, "profile": profile,
                "generators": dict(classes), "host_rss_gib": host_rss_gib(),
-               "plan_check": plan_check}
+               "plan_check": plan_check, "k7_waves": k7_waves}
     return {"build": build, "session": session}
 
 
@@ -1861,9 +2053,11 @@ def phase_probes(dev) -> dict:
     return res
 
 
-def kernels_line(kern, paths, smi) -> dict:
+def kernels_line(kern, paths, smi, waves) -> dict:
     """One row per TPU kernel: its forms' numbers summed over the main
-    paths, with the split by form and by path."""
+    paths, with the split by form and by path.  K7's row also has its
+    latency floor on the session's proof: its waves times one permutation's
+    latency over four lanes (phase 3c)."""
     def bound(nbytes, muls, fmas):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = max(muls / INT32_MULS_PER_S, fmas / FP64_FMAS_PER_S) * 1e3
@@ -1918,6 +2112,10 @@ def kernels_line(kern, paths, smi) -> dict:
             "bound_ms_by_path": {k: bound(*c)[0]
                                  for k, c in path_cost.items()},
             "forms": forms})
+        if key == "K7":
+            n = paths["session"]["k7_waves"]
+            out[-1].update(session_waves=n,
+                           latency_floor_ms=n * waves["perm_latency_ms"])
     return {"kernels": out, "card": smi}
 
 
@@ -1936,6 +2134,8 @@ def main() -> int:
         kern = phase_kernels(dev)
     with phase("3b K2's narrow levels: device time, host pace, one launch"):
         narrow = phase_narrow_levels(dev)
+    with phase("3c K7's 18 waves: device time, host pace, one launch"):
+        waves = phase_witness_waves(dev)
     rng = np.random.default_rng(SEED)
     with phase(f"4 full width ({NUM_POLYS} x 2^{LOG_N}, rate {RATE_BITS}, "
                f"cap {CAP_HEIGHT})"):
@@ -1964,8 +2164,9 @@ def main() -> int:
                "verified by the port)"):
         paths.update(phase_session(dev))
     with phase("10 kernels line"):
-        line = kernels_line(kern, paths, smi)
+        line = kernels_line(kern, paths, smi, waves)
         line["narrow_levels"] = narrow
+        line["witness_waves"] = waves
         line["paths"] = {
             k: {f: p[f] for f in ("cold_s", "warm_s", "peak_bytes",
                                   "resident_bytes", "profile") if f in p}
@@ -1973,7 +2174,7 @@ def main() -> int:
         for k, p in paths.items():
             for f in ("stages_ms", "merkle_levels", "host", "k2_before",
                       "runs", "session_s", "generators", "host_rss_gib",
-                      "plan_check"):
+                      "plan_check", "grind", "k7_waves"):
                 if f in p:
                     line["paths"][k][f] = p[f]
     with phase("11 int32 multiply rate and field-product SASS"):

@@ -1,5 +1,6 @@
 // Kernels K1 and K2: the Poseidon-12 leaf sponge and the Merkle levels;
-// K7 (at the end): a wave of the Poseidon gate's witness.
+// K7 and K8 (at the end), which no TPU kernel has: the Poseidon gate's
+// witness waves and the FRI proof-of-work grind.
 //
 // K1 replaces plonky2_tpu/hash/poseidon_pallas.py:hash_leaves_cols_pallas,
 // K2 replaces plonky2_tpu/hash/poseidon_pallas.py:compress_pairs_cols_pallas
@@ -331,14 +332,27 @@ __device__ __forceinline__ uint64_t group_word(const LaneState<G>& st, int w) {
   return __shfl_sync(FULL_MASK, st.s[w / G], w % G, G);
 }
 
-template <int G>
+// What permute_lanes records of a permutation: a full round's state after
+// its constant layer (round r of the eight, word w) and a partial round's
+// s0 before its S-box.  K2 records nothing (the calls inline to nothing);
+// K7 records its gate's wires (WireRecorder, below).
+struct NoRecord {
+  __device__ __forceinline__ void full(int, int, uint64_t) const {}
+  __device__ __forceinline__ void partial(int, uint64_t) const {}
+};
+
+template <int G, class Rec>
 __device__ __forceinline__ void full_round_lanes(LaneState<G>& st, int lane, int r,
-                                                 const TailTables& t) {
+                                                 const TailTables& t, const Rec& rec) {
   constexpr int K = LaneState<G>::K;
 #pragma unroll
   for (int k = 0; k < K; k++) {
     const int w = lane + G * k;
-    if (w < WIDTH) st.s[k] = sbox(gl::add_nc(st.s[k], t.rc[r][w]));
+    if (w < WIDTH) {
+      const uint64_t x = gl::add_nc(st.s[k], t.rc[r][w]);
+      rec.full(r, w, x);
+      st.s[k] = sbox(x);
+    }
   }
   double lo[WIDTH], hi[WIDTH];
 #pragma unroll
@@ -362,11 +376,12 @@ __device__ __forceinline__ void full_round_lanes(LaneState<G>& st, int lane, int
   }
 }
 
-template <int G>
-__device__ void permute_lanes(LaneState<G>& st, int lane, const TailTables& t) {
+template <int G, class Rec = NoRecord>
+__device__ void permute_lanes(LaneState<G>& st, int lane, const TailTables& t,
+                              const Rec& rec = Rec()) {
   constexpr int K = LaneState<G>::K;
 #pragma unroll 1
-  for (int r = 0; r < 4; r++) full_round_lanes(st, lane, r, t);
+  for (int r = 0; r < 4; r++) full_round_lanes(st, lane, r, t, rec);
   // first partial-round constant, then the initial matrix over words 1-11
 #pragma unroll
   for (int k = 0; k < K; k++) {
@@ -404,6 +419,7 @@ __device__ void permute_lanes(LaneState<G>& st, int lane, const TailTables& t) {
       for (int j = 0; j < 5; j++) e[j] = __shfl_xor_sync(FULL_MASK, d.w[j], o, G);
       dot_merge(d, e);
     }
+    rec.partial(r, s0);
     // the constant after the S-box is 0 in the last round
     const uint64_t x0 = gl::add_nc(sbox(s0), PLK_FAST_PRC[r]);
     uint64_t lo, hi;
@@ -424,7 +440,7 @@ __device__ void permute_lanes(LaneState<G>& st, int lane, const TailTables& t) {
   }
   if (lane == 0) st.s[0] = s0;
 #pragma unroll 1
-  for (int r = 4; r < 8; r++) full_round_lanes(st, lane, r, t);
+  for (int r = 4; r < 8; r++) full_round_lanes(st, lane, r, t, rec);
 }
 
 // in: (4, 2 m0), node pairs adjacent; out: the n_levels levels of m0,
@@ -474,85 +490,179 @@ compress_tail_kernel(const uint64_t* in, uint64_t* out, int64_t m0, int n_levels
 }
 
 // ---------------------------------------------------------------------------
-// K7: a wave of the Poseidon gate's witness (port-only).  The JAX package
-// computes it in XLA, with no Pallas kernel (plonky2_tpu/hash/
-// poseidon_wires_jax.py:poseidon_wire_batch); its plain version here is
-// hash/poseidon_wires.py:poseidon_wires.  Row g of a wave reads its 12
-// inputs and its swap wire from the witness plan's slot buffer at
-// dep_idx[k * G + g] (a (13, G) int32 array: neighbouring threads read
-// neighbouring indices), runs the permutation and writes the gate's 122
-// other wires at out_idx[k * G + g], in PoseidonGenerator.output_targets'
-// order: 4 deltas, the S-box inputs of full rounds 1-3 (36), of the 22
-// partial rounds and of the last 4 full rounds (48), then the 12 outputs.
-// A swap wire that is not 0 or 1 sets *err (the plan raises).
+// K7: the Poseidon gate's witness waves (port-only).  The JAX package
+// computes a wave in XLA, with no Pallas kernel (plonky2_tpu/hash/
+// poseidon_wires_jax.py:poseidon_wire_batch); the plain version here is
+// hash/poseidon_wires.py:poseidon_wires_waves.  A launch runs a run of
+// consecutive waves of the device witness plan: wave v is the columns
+// [offsets[v], offsets[v + 1]) of the run's (13, R) and (122, R) int32
+// index arrays.  Row g reads its 12 inputs and its swap wire from the slot
+// buffer at dep_idx[k * R + g] (neighbouring rows, neighbouring indices),
+// runs the permutation and writes the gate's 122 other wires at
+// out_idx[k * R + g], in PoseidonGenerator.output_targets' order: 4 deltas,
+// the S-box inputs of full rounds 1-3 (36), of the 22 partial rounds and
+// of the last 4 full rounds (48), then the 12 outputs.  A swap wire that is
+// not 0 or 1 sets *err (the plan raises).  Within a wave no row reads a
+// slot that another row writes; a wave reads what the waves before it
+// wrote.
 //
-// Bound on an H100: integer operations on a wide wave (K1's ~4.1k products
-// a row against ~1.6 kB of gathers, scatters and indices), one
-// permutation's latency on the narrow waves near a tree's root.
+// Bound on an H100: latency.  The flagship's plan runs 18 Poseidon waves
+// of 2^16 rows down to 1, each reading the one before, so its floor is 18
+// permutations one after the other; only the widest waves hold enough rows
+// to fill the card (K1's ~4.1k products a row against ~1.6 kB of gathers,
+// scatters and indices: integer operations there).  One launch a wave and
+// one thread a row, the kernel's first form, took 1.475 ms for the 18,
+// 23x the bytes (PERF.md).
 //
-// Design: the first version, one thread a row, K1's round code (full
-// rounds with the float64 MDS, the initial layer, the partial rounds with
-// 160-bit dot accumulators) with every recorded value taken through
-// gl::canon, because each is a witness wire: a full round's S-box inputs
-// are its state after the constant layer, a partial round's is s[0]
-// before its S-box.  No temporaries: the gathers and scatters go straight
-// to the slot buffer.  Within a wave no row reads a slot that another row
-// writes (the plan's waves are built that way), so the rows are
-// independent.
+// Design: K2's narrow top, reused.  (1) One persistent cooperative launch
+// walks the run's waves with a grid-wide barrier between two waves; the
+// grid is as many blocks as fit the card at once, fewer when the widest
+// wave needs fewer, and a grid-stride loop covers the rest.  Reads of the
+// slot buffer go through L2 (ld.global.cg): other blocks wrote them in this
+// launch.  (2) One row's permutation is split across TAIL_LANES = 4 lanes
+// (permute_lanes): lane l holds words l, l + 4 and l + 8, so it computes
+// its own delta, swap * (s[l + 4] - s[l]), and its own swap without a
+// shuffle, records its own words' S-box inputs of the full rounds and its
+// own outputs, and lane 0 records the partial rounds' s0 (every lane holds
+// s0).  Every recorded value goes through gl::canon (a witness wire; the
+// rounds keep non-canonical intermediates).  Each of the 122 wires has
+// exactly one writer lane (tests/test_torch_poseidon.py models the map).
+// (3) A row's 122 slot indices are loaded into shared memory, all at once,
+// before its permutation: a store waits for its index, and with each index
+// read from global memory at its store, lane 0's 47 stores put ~47 memory
+// latencies on the row's chain.  Measured on an H100 at 700 W (PERF.md):
+// a narrow wave alone 0.048 -> 0.030 ms, the flagship's 18 waves in one
+// launch 1.11 -> 0.89 ms on a session proof; one permutation over four
+// lanes, as a one-row wave alone, 0.029 ms, so their floor is 0.53 ms.
 constexpr int WIRE_OUTPUTS = 122;
+constexpr int WIRE_STRIDE = 124;  // a row's indices in shared memory: 124 = 28 (mod 32)
+                                  // puts the eight rows of a warp on distinct banks
 
+struct WireRecorder {
+  uint64_t* values;
+  const int32_t* slot;  // the row's slot indices, in shared memory
+  int lane;
+  bool active;  // false on the grid-stride loop's padding rows
+
+  __device__ __forceinline__ void put(int k, uint64_t v) const {
+    if (active) values[slot[k]] = v;
+  }
+  // full rounds 1-3 (r = 1..3) and the last four (r = 4..7); round 0's
+  // inputs are the gate's own input wires
+  __device__ __forceinline__ void full(int r, int w, uint64_t x) const {
+    if (r > 0) put((r < 4 ? 4 + WIDTH * (r - 1) : 62 + WIDTH * (r - 4)) + w, gl::canon(x));
+  }
+  __device__ __forceinline__ void partial(int r, uint64_t s0) const {
+    if (lane == 0) put(40 + r, gl::canon(s0));
+  }
+};
+
+template <int G>
+__global__ void __launch_bounds__(TAIL_THREADS, 4)
+poseidon_waves_kernel(uint64_t* values, const int32_t* __restrict__ dep_idx,
+                      const int32_t* __restrict__ out_idx, const int64_t* __restrict__ offsets,
+                      int n_waves, int64_t R, int* err) {
+  static_assert(G == 4, "a lane holds words l, l + 4 and l + 8");
+  constexpr int ROWS_PER_WARP = 32 / G;
+  constexpr int PER_LANE = (WIRE_OUTPUTS + G - 1) / G;
+  __shared__ TailTables t;
+  __shared__ int32_t slots[TAIL_THREADS / G][WIRE_STRIDE];
+  load_tail_tables(t);
+  __syncthreads();
+  int32_t* slot = slots[threadIdx.x / G];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int lane = threadIdx.x % G;
+  const int group = (threadIdx.x % 32) / G;
+  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int64_t n_warps = (int64_t)gridDim.x * blockDim.x / 32;
+  for (int v = 0; v < n_waves; v++) {
+    const int64_t first = offsets[v], m = offsets[v + 1] - first;
+    // warp-uniform bounds: every lane of a warp reaches every shuffle
+    for (int64_t base = warp * ROWS_PER_WARP; base < m; base += n_warps * ROWS_PER_WARP) {
+      const int64_t row = base + group;
+      const int64_t g = first + (row < m ? row : m - 1);
+      int32_t in_slot[LaneState<G>::K + 1], out_slot[PER_LANE];
+#pragma unroll
+      for (int k = 0; k < LaneState<G>::K; k++) in_slot[k] = dep_idx[(lane + G * k) * R + g];
+      in_slot[LaneState<G>::K] = dep_idx[WIDTH * R + g];
+#pragma unroll
+      for (int j = 0; j < PER_LANE; j++)
+        if (lane + G * j < WIRE_OUTPUTS) out_slot[j] = out_idx[(lane + G * j) * R + g];
+      __syncwarp();  // the group has finished with its previous row's slots
+#pragma unroll
+      for (int j = 0; j < PER_LANE; j++)
+        if (lane + G * j < WIRE_OUTPUTS) slot[lane + G * j] = out_slot[j];
+      LaneState<G> st;
+#pragma unroll
+      for (int k = 0; k < LaneState<G>::K; k++)
+        st.s[k] = (uint64_t)__ldcg((const unsigned long long*)(values + in_slot[k]));
+      const uint64_t swap =
+          (uint64_t)__ldcg((const unsigned long long*)(values + in_slot[LaneState<G>::K]));
+      if (swap > 1) *err = 1;
+      __syncwarp();
+      const WireRecorder rec{values, slot, lane, row < m};
+      rec.put(lane, gl::mul(swap, gl::sub(st.s[1], st.s[0])));
+      if (swap == 1) {
+        const uint64_t x = st.s[0];
+        st.s[0] = st.s[1];
+        st.s[1] = x;
+      }
+      permute_lanes(st, lane, t, rec);
+#pragma unroll
+      for (int k = 0; k < LaneState<G>::K; k++)
+        rec.put(WIRE_OUTPUTS - WIDTH + lane + G * k, gl::canon(st.s[k]));
+    }
+    if (v + 1 < n_waves) grid.sync();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K8: the FRI proof-of-work grind (port-only).  The JAX package grinds in
+// XLA inside its fused FRI (plonky2_tpu/fri/device_prover.py:_fused_fri_fn,
+// no Pallas kernel); the plain version here is hash/poseidon_cuda.py:
+// pow_grind.  buf holds the 12 words of the duplex state (the pending
+// inputs written over the sponge state), then the answer (in: 2^64 - 1),
+// then a ticket counter (in: 0).  Candidate witness w sets word pos; it
+// passes if the canonical response, word 7 of the permuted state, is below
+// 2^(64 - bits) (every w at 0 bits).  The kernel writes the smallest
+// passing w in [start, limit), or leaves 2^64 - 1.
+//
+// Bound on an H100: integer operations, one permutation a candidate; the
+// expected work at 16 bits is 2^16 permutations (~0.1 ms at K1's rate).
+//
+// Design: K1's permute, one thread a candidate, as many blocks as fit the
+// card.  A block takes chunks of blockDim.x candidates in increasing order
+// from the ticket (atomicAdd) and records a pass with atomicMin; it stops
+// once a chunk starts past limit or above the smallest pass so far.  Every
+// chunk that starts at or below the final answer is therefore finished
+// (the answer only falls), so the answer is the smallest pass, as the host
+// grind and the JAX package find it, and the proof stays byte-identical.
 __global__ void __launch_bounds__(THREADS, 1)
-poseidon_wires_kernel(uint64_t* values, const int32_t* __restrict__ dep_idx,
-                      const int32_t* __restrict__ out_idx, int64_t G, int* err) {
-  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= G) return;
-  uint64_t s[WIDTH];
+pow_grind_kernel(unsigned long long* buf, int pos, int bits, uint64_t start, uint64_t limit) {
+  constexpr unsigned long long NONE = ~0ull;
+  __shared__ unsigned long long chunk;
+  unsigned long long* best = buf + WIDTH;
+  unsigned long long* ticket = buf + WIDTH + 1;
+  // bits = 64: only a response of 0 passes
+  const uint64_t bound = bits == 0 ? 0 : 1ull << (64 - bits);
+  for (;;) {
+    if (threadIdx.x == 0) {
+      const unsigned long long s = start + atomicAdd(ticket, 1ull) * blockDim.x;
+      chunk = s >= limit || s > __ldcg(best) ? NONE : s;
+    }
+    __syncthreads();
+    const unsigned long long s = chunk;
+    __syncthreads();  // every thread has read chunk before thread 0 rewrites it
+    if (s == NONE) return;
+    const uint64_t w = s + threadIdx.x;
+    if (w < limit) {
+      uint64_t st[WIDTH];
 #pragma unroll
-  for (int j = 0; j < WIDTH; j++) s[j] = values[dep_idx[j * G + g]];
-  const uint64_t swap = values[dep_idx[WIDTH * G + g]];
-  if (swap > 1) *err = 1;
-  const int32_t* out = out_idx + g;
-  auto put = [&](int k, uint64_t v) { values[out[k * G]] = v; };
-#pragma unroll
-  for (int i = 0; i < 4; i++) put(i, gl::mul(swap, gl::sub(s[i + 4], s[i])));
-  if (swap == 1) {
-#pragma unroll
-    for (int i = 0; i < 4; i++) {
-      const uint64_t t = s[i];
-      s[i] = s[i + 4];
-      s[i + 4] = t;
+      for (int j = 0; j < WIDTH; j++) st[j] = j == pos ? w : (uint64_t)__ldg(buf + j);
+      permute(st);
+      if (bits == 0 || gl::canon(st[RATE - 1]) < bound) atomicMin(best, (unsigned long long)w);
     }
   }
-#pragma unroll 1
-  for (int r = 0; r < 4; r++) {
-#pragma unroll
-    for (int i = 0; i < WIDTH; i++) s[i] = gl::add_nc(s[i], PLK_RC[r * WIDTH + i]);
-    if (r > 0) {
-#pragma unroll
-      for (int i = 0; i < WIDTH; i++) put(4 + WIDTH * (r - 1) + i, gl::canon(s[i]));
-    }
-#pragma unroll
-    for (int i = 0; i < WIDTH; i++) s[i] = sbox(s[i]);
-    mds(s);
-  }
-  initial_layer(s);
-#pragma unroll 1
-  for (int r = 0; r < 22; r++) {
-    put(40 + r, gl::canon(s[0]));
-    partial_round(s, r);
-  }
-#pragma unroll 1
-  for (int r = 0; r < 4; r++) {
-#pragma unroll
-    for (int i = 0; i < WIDTH; i++) s[i] = gl::add_nc(s[i], PLK_RC[(26 + r) * WIDTH + i]);
-#pragma unroll
-    for (int i = 0; i < WIDTH; i++) put(62 + WIDTH * r + i, gl::canon(s[i]));
-#pragma unroll
-    for (int i = 0; i < WIDTH; i++) s[i] = sbox(s[i]);
-    mds(s);
-  }
-#pragma unroll
-  for (int i = 0; i < WIDTH; i++) put(WIRE_OUTPUTS - WIDTH + i, gl::canon(s[i]));
 }
 
 }  // namespace
@@ -604,14 +714,50 @@ extern "C" int plk_compress_tail(const void* in, void* out, long long m0, int n_
   return (int)cudaGetLastError();
 }
 
-extern "C" int plk_poseidon_wires(void* values, const void* dep_idx, const void* out_idx,
-                                  long long G, void* err, int device, void* stream) {
+extern "C" int plk_poseidon_wires_waves(void* values, const void* dep_idx, const void* out_idx,
+                                        const void* offsets, int n_waves, long long R,
+                                        long long max_rows, void* err, int device,
+                                        void* stream) {
   cudaError_t err_ = cudaSetDevice(device);
   if (err_ != cudaSuccess) return (int)err_;
-  if (G == 0) return 0;
-  unsigned blocks = (unsigned)((G + THREADS - 1) / THREADS);
-  poseidon_wires_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (uint64_t*)values, (const int32_t*)dep_idx, (const int32_t*)out_idx, (int64_t)G, (int*)err);
+  if (n_waves == 0 || max_rows == 0) return 0;
+  auto kernel = poseidon_waves_kernel<TAIL_LANES>;
+  int per_sm = 0, sms = 0;
+  err_ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TAIL_THREADS, 0);
+  if (err_ != cudaSuccess) return (int)err_;
+  err_ = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err_ != cudaSuccess) return (int)err_;
+  const long long needed = (max_rows * TAIL_LANES + TAIL_THREADS - 1) / TAIL_THREADS;
+  const long long resident = (long long)per_sm * sms;
+  if (resident == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const unsigned blocks = (unsigned)(needed < resident ? needed : resident);
+  uint64_t* v = (uint64_t*)values;
+  const int32_t* d = (const int32_t*)dep_idx;
+  const int32_t* o = (const int32_t*)out_idx;
+  const int64_t* offs = (const int64_t*)offsets;
+  int64_t r = (int64_t)R;
+  int* e = (int*)err;
+  void* args[] = {(void*)&v, (void*)&d, (void*)&o, (void*)&offs, (void*)&n_waves, (void*)&r, (void*)&e};
+  err_ = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(TAIL_THREADS), args, 0,
+                                     (cudaStream_t)stream);
+  if (err_ != cudaSuccess) return (int)err_;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int plk_pow_grind(void* buf, int pos, int bits, long long start, long long limit,
+                             int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (pos < 0 || pos >= WIDTH || bits < 0 || bits > 64 || start < 0 || limit < start)
+    return (int)cudaErrorInvalidValue;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pow_grind_kernel, THREADS, 0);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)(per_sm > 0 ? per_sm * sms : sms);
+  pow_grind_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (unsigned long long*)buf, pos, bits, (uint64_t)start, (uint64_t)limit);
   return (int)cudaGetLastError();
 }
 

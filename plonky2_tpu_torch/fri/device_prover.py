@@ -195,7 +195,8 @@ def _device_fri_proof_layered(initial_trees, coeffs, values_br, challenger,
     trees, final = device_fri_committed_trees(coeffs, values_br, challenger,
                                               fri_params, timing)
     with timing.scope("proof of work"):
-        pow_witness = fri_proof_of_work(challenger, fri_params.config)
+        pow_witness = fri_proof_of_work(challenger, fri_params.config,
+                                        values_br[0].device)
     with timing.scope("queries"):
         indices = [int(c) % n for c in challenger.get_n_challenges(
             fri_params.config.num_query_rounds)]

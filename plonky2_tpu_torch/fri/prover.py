@@ -1,13 +1,15 @@
 """FRI proof of work and query rounds.
 
 The port's counterpart of plonky2_tpu/fri/prover.py:fri_proof_of_work (the
-Poseidon branch) and ``fri_prover_query_rounds``.  The grind runs on the
-host, as the JAX package's layered FRI path runs it: batches of candidate
-witnesses through the numpy permutation (hash/poseidon.py:poseidon), and the
-smallest witness whose response has ``proof_of_work_bits`` leading zeros
-wins, so both packages find the same one.  The query rounds read rows and
-sibling paths from device-resident trees (hash/merkle.py:DeviceMerkleTree),
-which the caller prefetches in one gather per tree.
+Poseidon branch) and ``fri_prover_query_rounds``.  The grind runs where the
+proof's tensors lie: on a CUDA device as one launch of kernel K8
+(hash/poseidon_cuda.py:pow_grind_cuda), as the JAX package's fused FRI
+grinds on its device, and on the CPU as K8's plain version.  Either finds
+the smallest witness whose response has ``proof_of_work_bits`` leading
+zeros, as the JAX package's host grind does, so both packages find the
+same one.  The query rounds read rows and sibling paths from
+device-resident trees (hash/merkle.py:DeviceMerkleTree), which the caller
+prefetches in one gather per tree.
 """
 from __future__ import annotations
 
@@ -15,34 +17,21 @@ from typing import List
 
 import numpy as np
 
-from ..hash import poseidon as pos
+from ..field.convert import from_u64
+from ..hash import poseidon_cuda as pc
 from .proof import FriInitialTreeProof, FriQueryRound, FriQueryStep
 
-POW_BATCH = 1 << 12
-POW_LIMIT = 1 << 40
 
-
-def fri_proof_of_work(challenger, config) -> int:
-    """Grind, observe the witness, draw the response and check it."""
-    bound = 1 << (64 - config.proof_of_work_bits)
-    base = np.array(challenger.duplex_input_state(), dtype=np.uint64)
-    witness_pos = len(challenger.input_buffer)
-    witness = None
-    start = 0
-    while witness is None:
-        if start >= POW_LIMIT:
-            raise RuntimeError("proof-of-work search ran past 2^40")
-        states = np.broadcast_to(base, (POW_BATCH, pos.WIDTH)).copy()
-        states[:, witness_pos] = np.arange(start, start + POW_BATCH,
-                                           dtype=np.uint64)
-        responses = pos.poseidon(states)[:, pos.SPONGE_RATE - 1]
-        ok = np.flatnonzero(responses < np.uint64(bound)) if bound < 1 << 64 \
-            else np.arange(POW_BATCH)
-        if ok.size:
-            witness = start + int(ok[0])
-        start += POW_BATCH
+def fri_proof_of_work(challenger, config, device) -> int:
+    """Grind on `device` (the challenger's duplex state goes up, the
+    witness comes down), observe the witness, draw the response and check
+    it."""
+    bits = config.proof_of_work_bits
+    base = from_u64(np.array(challenger.duplex_input_state(),
+                             dtype=np.uint64), device)
+    witness = pc.pow_grind_cuda(base, len(challenger.input_buffer), bits)
     challenger.observe_element(witness)
-    if challenger.get_challenge() >= bound:
+    if challenger.get_challenge() >= 1 << (64 - bits):
         raise RuntimeError("proof-of-work response above its bound")
     return witness
 

@@ -227,12 +227,13 @@ class PoseidonGenerator(SimpleGenerator):
         return np.concatenate(cols, axis=1)
 
     @classmethod
-    def run_batch_device(cls, meta, values, dep, out, err):
-        """A wave of rows on the device witness plan's slot buffer: kernel
-        K7 on a CUDA tensor, its plain version on a CPU one
-        (hash/poseidon_cuda.py:poseidon_wires_cuda)."""
-        from ..hash.poseidon_cuda import poseidon_wires_cuda
-        poseidon_wires_cuda(values, dep, out, err)
+    def run_waves_device(cls, values, dep, out, offsets, err):
+        """A run of consecutive waves on the device witness plan's slot
+        buffer (wave v: the columns [offsets[v], offsets[v + 1]) of dep and
+        out): one launch of kernel K7 on a CUDA tensor, its plain version on
+        a CPU one (hash/poseidon_cuda.py:poseidon_wires_waves_cuda)."""
+        from ..hash.poseidon_cuda import poseidon_wires_waves_cuda
+        poseidon_wires_waves_cuda(values, dep, out, offsets, err)
 
     def run_once(self, witness, out):
         alg = ScalarBase()

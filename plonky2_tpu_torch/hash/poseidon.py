@@ -5,11 +5,11 @@ permutation), hash/poseidon_jax.py (``poseidon_t``, ``hash_leaves_cols``,
 ``compress_pairs_cols``, in the same (12, B) column layout) and
 hash/poseidon_wires_jax.py (``poseidon_fast_t``), plus the numpy batch
 permutation ``poseidon`` and the sponges ``hash_n_to_m_no_pad`` and
-``hash_no_pad`` (JAX hash/poseidon.py), which the public-inputs hash and the
-proof-of-work grind run on the host.  Width 12, 4 + 22 + 4
-rounds, x^7 S-box, circulant + diagonal MDS.  ``poseidon_t`` runs the naive
-round schedule, ``poseidon_fast_t`` the fast partial-round one that kernels
-K1 and K2 run (hash/poseidon_cuda.py); both give the same permutation.
+``hash_no_pad`` (JAX hash/poseidon.py), which the public-inputs hash runs
+on the host.  Width 12, 4 + 22 + 4 rounds, x^7 S-box, circulant +
+diagonal MDS.  ``poseidon_t`` runs the naive round schedule,
+``poseidon_fast_t`` the fast partial-round one that kernels K1, K2, K7 and
+K8 run (hash/poseidon_cuda.py); both give the same permutation.
 ``hash_leaves_cols`` and ``compress_pairs_cols`` are the plain versions of
 K1 and K2.
 

@@ -1,4 +1,4 @@
-"""A wave of the Poseidon gate's witness: the plain version of kernel K7.
+"""The Poseidon gate's witness waves: the plain version of kernel K7.
 
 The port's counterpart of plonky2_tpu/hash/poseidon_wires_jax.py.  The
 device witness plan (iop/device_witness.py) runs every ready PoseidonGate
@@ -12,9 +12,11 @@ poseidon_fast_t) with every S-box input recorded, in the column order of
 
 A full round's S-box inputs are its state after the constant layer; a
 partial round's is the fast schedule's s[0] before its S-box.  Every
-value is canonical (a witness wire).  ``poseidon_wires`` is K7's plain
-version: gather from the plan's slot buffer, ``poseidon_wire_batch``,
-scatter; hash/poseidon_cuda.py:poseidon_wires_cuda is its wrapper.
+value is canonical (a witness wire).  ``poseidon_wires`` runs one wave:
+gather from the plan's slot buffer, ``poseidon_wire_batch``, scatter.
+``poseidon_wires_waves``, K7's plain version, runs a run of consecutive
+waves in order, each reading what the ones before it wrote;
+hash/poseidon_cuda.py:poseidon_wires_waves_cuda is its wrapper.
 """
 from __future__ import annotations
 
@@ -83,3 +85,13 @@ def poseidon_wires(values: torch.Tensor, dep_idx: torch.Tensor,
     swap = dep[WIDTH]
     err |= ((swap != 0) & (swap != 1)).any().to(err.dtype)
     values[out_idx] = poseidon_wire_batch(dep.T)
+
+
+def poseidon_wires_waves(values: torch.Tensor, dep_idx: torch.Tensor,
+                         out_idx: torch.Tensor, offsets,
+                         err: torch.Tensor) -> None:
+    """Plain version of K7, in place: the waves of a run, in order; wave v
+    is the columns [offsets[v], offsets[v + 1]) of dep_idx (13, R) and
+    out_idx (122, R)."""
+    for a, b in zip(offsets, offsets[1:]):
+        poseidon_wires(values, dep_idx[:, a:b], out_idx[:, a:b], err)

@@ -9,13 +9,17 @@ waves, and uploads their index arrays; every proof then runs
 
     values <- zeros; values[inputs] <- the input values
     for each wave: cls.run_batch_device(meta, values, dep, out, err)
+      (each maximal run of consecutive waves of a class with
+      run_waves_device: cls.run_waves_device(values, dep, out, offsets,
+      err), at once)
     wires  <- values[:degree * num_wires], fixed up at the copy classes
 
-on the plan's device.  A PoseidonGate wave is one launch of kernel K7
-(hash/poseidon_cuda.py:poseidon_wires_cuda) on a CUDA buffer; the other
-classes are a few torch operations.  On a CPU buffer every wave runs its
-plain version.  The host uploads only the input values and the random
-draws, and reads back only the public inputs and the error flag.
+on the plan's device.  A run of PoseidonGate waves is one launch of kernel
+K7 (hash/poseidon_cuda.py:poseidon_wires_waves_cuda) on a CUDA buffer (the
+flagship's 18 in one); the other classes are a few torch operations.  On a
+CPU buffer every wave runs its plain version.  The host uploads only the
+input values and the random draws, and reads back only the public inputs
+and the error flag.
 
 Randomness: the dep-free scalar generators (RandomValueGenerator) draw
 from the caller's ``rng`` each proof, one at a time, in generator order:
@@ -29,9 +33,9 @@ rewrite (over an input, across waves, or twice inside one wave) and
 ``build_plan`` then refuses (returns None): the caller runs the host
 engine, which raises if the values conflict.  A plan that builds is
 conflict-free.  It also refuses a circuit with a generator class without
-``run_batch_device``, a scalar generator with dependencies (or without
-one ``target``), 2^31 slots or more (int32 indices), or a fixpoint that
-stalls.
+``run_batch_device`` or ``run_waves_device``, a scalar generator with
+dependencies (or without one ``target``), 2^31 slots or more (int32
+indices), or a fixpoint that stalls.
 """
 from __future__ import annotations
 
@@ -61,6 +65,36 @@ class _Wave:
         self.meta = meta      # int64 constants or None
 
 
+class _WaveRun:
+    """Consecutive waves of one class with run_waves_device: their index
+    arrays side by side, wave v the columns [offsets[v], offsets[v + 1])."""
+    __slots__ = ("cls", "dep", "out", "offsets")
+
+    def __init__(self, cls, dep, out, offsets):
+        self.cls, self.dep, self.out, self.offsets = cls, dep, out, offsets
+
+
+def _group_runs(waves):
+    """[(cls, dep, out, meta)] -> [(cls, dep, out, meta, offsets)]: each
+    maximal run of consecutive waves of a class with run_waves_device as
+    one item, its index arrays side by side (offsets None elsewhere)."""
+    items = []
+    for cls, dep, out, meta in waves:
+        if not hasattr(cls, "run_waves_device"):
+            items.append((cls, dep, out, meta, None))
+            continue
+        if not (items and items[-1][0] is cls and items[-1][4] is not None):
+            items.append((cls, [], [], None, [0]))
+        _, deps, outs, _, offsets = items[-1]
+        deps.append(dep)
+        outs.append(out)
+        offsets.append(offsets[-1] + dep.shape[1])
+    return [(cls, dep, out, meta, None) if offsets is None else
+            (cls, np.concatenate(dep, 1), np.concatenate(out, 1), None,
+             tuple(offsets))
+            for cls, dep, out, meta, offsets in items]
+
+
 class DeviceWitnessPlan:
     """One circuit's and one input target set's waves, on `device`."""
 
@@ -83,9 +117,21 @@ class DeviceWitnessPlan:
         self._fix_pos = up(fix_pos)
         self._fix_src = up(fix_src)
         self._pi_idx = up(pi_idx)
-        self.waves = [_Wave(cls, up(dep), up(out),
-                            None if meta is None else from_u64(meta, device))
-                      for cls, dep, out, meta in waves]
+        # what run() launches: single waves, and runs (_WaveRun) whose
+        # index arrays are uploaded once, side by side; self.waves keeps
+        # every wave, a run's as views of its arrays
+        self.steps, self.waves = [], []
+        for cls, dep, out, meta, offsets in _group_runs(waves):
+            if offsets is None:
+                w = _Wave(cls, up(dep), up(out),
+                          None if meta is None else from_u64(meta, device))
+                self.steps.append(w)
+                self.waves.append(w)
+                continue
+            run = _WaveRun(cls, up(dep), up(out), offsets)
+            self.steps.append(run)
+            self.waves += [_Wave(cls, run.dep[:, a:b], run.out[:, a:b], None)
+                           for a, b in zip(offsets, offsets[1:])]
 
     def matches(self, inputs) -> bool:
         """Whether the PartialWitness `inputs` sets the plan's targets, in
@@ -122,8 +168,11 @@ class DeviceWitnessPlan:
                              device=self.device)
         values[self._input_idx] = from_u64(vals, self.device)
         err = torch.zeros(1, dtype=torch.int32, device=self.device)
-        for w in self.waves:
-            w.cls.run_batch_device(w.meta, values, w.dep, w.out, err)
+        for s in self.steps:
+            if isinstance(s, _WaveRun):
+                s.cls.run_waves_device(values, s.dep, s.out, s.offsets, err)
+            else:
+                s.cls.run_batch_device(s.meta, values, s.dep, s.out, err)
         # one copy to the host: the public inputs and the error flag
         tail = to_u64(torch.cat([values[self._pi_idx], err.long()]))
         if tail[-1]:
@@ -223,7 +272,8 @@ def build_plan(prover_data, common_data, inputs,
                   degree * num_wires)
     if n_slots >= 1 << 31:
         return None
-    if not all(hasattr(g.cls, "run_batch_device") for g in cache.groups):
+    if not all(hasattr(g.cls, "run_batch_device")
+               or hasattr(g.cls, "run_waves_device") for g in cache.groups):
         return None
 
     # the scalar generators: only dep-free ones of one output `target`

@@ -15,7 +15,9 @@ Batchable generator classes set ``batch_group`` and implement
 ``output_targets`` and the classmethod ``run_batch(gens, dep_vals)``.  A
 class the device witness plan (iop/device_witness.py) can run also has the
 classmethod ``run_batch_device(meta, values, dep, out, err)`` and, where
-its generators carry constants, ``device_meta(gens)``.
+its generators carry constants, ``device_meta(gens)``, or, to run a run of
+consecutive waves at once, ``run_waves_device(values, dep, out, offsets,
+err)``.
 
 Randomness is an argument: ``rng`` is any object with ``randrange(P)``
 (``random.Random(seed)`` gives a reproducible witness) and None draws from
@@ -77,7 +79,10 @@ class SimpleGenerator:
     #   run_batch_device(meta, values, dep, out, err) writes the wave in
     #     place: values is the plan's int64 slot buffer, dep (n_deps, G)
     #     and out (n_outputs, G) int32 slot indices, meta the uploaded
-    #     constants (None without device_meta), err an int32 (1,) flag.
+    #     constants (None without device_meta), err an int32 (1,) flag;
+    #   or run_waves_device(values, dep, out, offsets, err): every maximal
+    #     run of consecutive waves of the class at once, wave v the columns
+    #     [offsets[v], offsets[v + 1]) of dep and out (no constants).
 
     def watch_list(self) -> List[Target]:
         return self.dependencies()

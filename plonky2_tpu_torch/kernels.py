@@ -67,9 +67,13 @@ SIGNATURES = {
                                ("out_operands", _P),
                                ("n_out", _I), ("n_slots", _I), ("C", _LL),
                                ("device", _I), ("stream", _P)),
-    "plk_poseidon_wires": (("values", _P), ("dep_idx", _P), ("out_idx", _P),
-                           ("G", _LL), ("err", _P), ("device", _I),
-                           ("stream", _P)),
+    "plk_poseidon_wires_waves": (("values", _P), ("dep_idx", _P),
+                                 ("out_idx", _P), ("offsets", _P),
+                                 ("n_waves", _I), ("R", _LL),
+                                 ("max_rows", _LL), ("err", _P),
+                                 ("device", _I), ("stream", _P)),
+    "plk_pow_grind": (("buf", _P), ("pos", _I), ("bits", _I), ("start", _LL),
+                      ("limit", _LL), ("device", _I), ("stream", _P)),
 }
 
 

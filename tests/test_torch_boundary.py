@@ -118,19 +118,33 @@ def test_wrappers_launch_with_declared_signatures(monkeypatch):
         assert {k: named[k] for k in shape} == shape, name
         # K5's row form runs in place on its one operand
         assert named.get("out", named.get("data")) == out.data_ptr()
-    # K7 writes its wave in place, through its index arrays
+    # K7 writes a run of waves in place, through its index arrays; the
+    # offsets go up once per run and device
     values = z((300,), dtype=i64)
-    dep = torch.zeros((13, 5), dtype=torch.int32)
-    out = torch.arange(122 * 5, dtype=torch.int32).reshape(122, 5) % 300
+    dep = torch.zeros((13, 7), dtype=torch.int32)
+    out = torch.arange(122 * 7, dtype=torch.int32).reshape(122, 7) % 300
     err = torch.zeros(1, dtype=torch.int32)
-    before = pc.poseidon_wires_cuda.launches
-    assert pc.poseidon_wires_cuda(values, dep, out, err) is None
-    assert pc.poseidon_wires_cuda.launches == before + 1
+    before = pc.poseidon_wires_waves_cuda.launches
+    assert pc.poseidon_wires_waves_cuda(values, dep, out, (0, 4, 6, 7),
+                                        err) is None
+    assert pc.poseidon_wires_waves_cuda.launches == before + 1
     named = kernels.named_args(*calls[-1])
-    assert {k: named[k] for k in ("values", "dep_idx", "out_idx", "G",
-                                  "err")} == {
+    offsets = pc._offsets_on((0, 4, 6, 7), values.device)
+    assert offsets.tolist() == [0, 4, 6, 7]
+    assert {k: named[k] for k in ("values", "dep_idx", "out_idx", "offsets",
+                                  "n_waves", "R", "max_rows", "err")} == {
         "values": values.data_ptr(), "dep_idx": dep.data_ptr(),
-        "out_idx": out.data_ptr(), "G": 5, "err": err.data_ptr()}
+        "out_idx": out.data_ptr(), "offsets": offsets.data_ptr(),
+        "n_waves": 3, "R": 7, "max_rows": 4, "err": err.data_ptr()}
+    # K8 grinds from the 12 words with the answer and the ticket behind
+    # them; the recorder writes no answer, so the wrapper finds none
+    before = pc.pow_grind_cuda.launches
+    with pytest.raises(RuntimeError, match="no witness"):
+        pc.pow_grind_cuda(z((12,), dtype=i64), 5, 16, 3, 1 << 20)
+    assert pc.pow_grind_cuda.launches == before + 1
+    named = kernels.named_args(*calls[-1])
+    assert {k: named[k] for k in ("pos", "bits", "start", "limit")} == {
+        "pos": 5, "bits": 16, "start": 3, "limit": 1 << 20}
     assert [c[0] for c in calls] == list(kernels.SIGNATURES)
     # the zero-tail forms get their factor table, K5 without a tail none
     assert kernels.named_args(*calls[4])["factors"] is not None
@@ -261,9 +275,10 @@ def test_refused_tail_launch_raises(monkeypatch):
 
 
 def test_failed_poseidon_wires_launch_raises(monkeypatch):
-    """A launch error of K7 raises: the launch is not counted, the plain
-    version does not run, and the slot buffer is not written.  Operands
-    the kernel cannot take raise before any launch."""
+    """A launch error of K7 (a refused cooperative launch among them)
+    raises: the launch is not counted, the plain version does not run,
+    and the slot buffer is not written.  Operands the kernel cannot take
+    raise before any launch."""
     import torch
 
     from plonky2_tpu_torch import kernels
@@ -272,33 +287,65 @@ def test_failed_poseidon_wires_launch_raises(monkeypatch):
 
     class Failing:
         @staticmethod
-        def plk_poseidon_wires(*args):
-            return 700
+        def plk_poseidon_wires_waves(*args):
+            return 720
 
         @staticmethod
         def plk_error_string(rc):
-            return b"an illegal memory access was encountered"
+            return b"too many blocks in cooperative launch"
 
     monkeypatch.setattr(kernels, "on_cpu", lambda t: False)
     monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
     monkeypatch.setattr(kernels, "library", lambda: Failing)
+    monkeypatch.setattr(pw, "poseidon_wires_waves", lambda *a: pytest.fail(
+        "the plain version ran"))
     monkeypatch.setattr(pw, "poseidon_wires", lambda *a: pytest.fail(
         "the plain version ran"))
     values = torch.arange(300, dtype=torch.int64)
     dep = torch.zeros((13, 4), dtype=torch.int32)
     out = torch.arange(122 * 4, dtype=torch.int32).reshape(122, 4) % 300
     err = torch.zeros(1, dtype=torch.int32)
-    before = pc.poseidon_wires_cuda.launches
-    with pytest.raises(RuntimeError, match="illegal memory access"):
-        pc.poseidon_wires_cuda(values, dep, out, err)
-    assert pc.poseidon_wires_cuda.launches == before
+    before = pc.poseidon_wires_waves_cuda.launches
+    with pytest.raises(RuntimeError, match="cooperative"):
+        pc.poseidon_wires_waves_cuda(values, dep, out, (0, 3, 4), err)
+    assert pc.poseidon_wires_waves_cuda.launches == before
     assert torch.equal(values, torch.arange(300, dtype=torch.int64))
-    for bad in ((values, dep.long(), out, err), (values, dep, out[:, :3], err),
-                (values, dep, out, err.long()),
-                (values, dep.t().contiguous().t(), out, err)):
+    for bad in ((values, dep.long(), out, (0, 4), err),
+                (values, dep, out[:, :3], (0, 4), err),
+                (values, dep, out, (0, 4), err.long()),
+                (values, dep.t().contiguous().t(), out, (0, 4), err),
+                (values, dep, out, (0, 5), err),
+                (values, dep, out, (3, 2, 4), err)):
         with pytest.raises((TypeError, ValueError)):
-            pc.poseidon_wires_cuda(*bad)
-    assert pc.poseidon_wires_cuda.launches == before
+            pc.poseidon_wires_waves_cuda(*bad)
+    assert pc.poseidon_wires_waves_cuda.launches == before
+
+
+def test_failed_pow_grind_launch_raises(monkeypatch):
+    """A launch error of K8 raises: not counted, no plain grind."""
+    import torch
+
+    from plonky2_tpu_torch import kernels
+    from plonky2_tpu_torch.hash import poseidon_cuda as pc
+
+    class Failing:
+        @staticmethod
+        def plk_pow_grind(*args):
+            return 98
+
+        @staticmethod
+        def plk_error_string(rc):
+            return b"invalid device function"
+
+    monkeypatch.setattr(kernels, "on_cpu", lambda t: False)
+    monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    monkeypatch.setattr(kernels, "library", lambda: Failing)
+    monkeypatch.setattr(pc, "pow_grind", lambda *a: pytest.fail(
+        "the plain version ran"))
+    before = pc.pow_grind_cuda.launches
+    with pytest.raises(RuntimeError, match="invalid device function"):
+        pc.pow_grind_cuda(torch.zeros(12, dtype=torch.int64), 0, 16)
+    assert pc.pow_grind_cuda.launches == before
 
 
 def test_ntt_row_forms_raise_instead_of_falling_back(monkeypatch):

@@ -192,7 +192,8 @@ def test_modsum_matches_python_sums():
 @pytest.mark.parametrize("pre", [0, 3, 7, 8])
 def test_proof_of_work_matches_jax(pre):
     """From the same transcript state (`pre` elements pending), the port
-    finds JAX's witness and both transcripts stay equal."""
+    finds JAX's witness and both transcripts stay equal (the port's grind
+    on the CPU: K8's plain version)."""
     from types import SimpleNamespace
 
     from plonky2_tpu.fri.prover import fri_proof_of_work as jax_pow
@@ -201,5 +202,5 @@ def test_proof_of_work_matches_jax(pre):
     ours, ref = Challenger(), JaxChallenger()
     for ch in (ours, ref):
         ch.observe_elements(list(range(100, 100 + 11 + pre)))
-    assert fri_proof_of_work(ours, config) == jax_pow(ref, config)
+    assert fri_proof_of_work(ours, config, "cpu") == jax_pow(ref, config)
     assert ours.get_n_challenges(5) == ref.get_n_challenges(5)

@@ -404,7 +404,8 @@ def test_build_on_card_matches_cpu(dev):
 def test_session_on_card_matches_cpu(dev):
     """ProverSession on the card and on the CPU, from the same random
     stream, give the same proof bytes, and the port's verifier accepts
-    it; on the card the witness plan's Poseidon waves launch K7."""
+    it; on the card the witness plan's Poseidon waves launch K7 once and
+    the proof of work K8 once."""
     import random
 
     from plonky2_tpu_torch.models.hash_tree import build_hash_tree_circuit
@@ -416,9 +417,13 @@ def test_session_on_card_matches_cpu(dev):
         data, pw, root = build_hash_tree_circuit(
             CircuitConfig.wide_ecc_config(), 5, device=where)
         sess = ProverSession(data, device=where)
-        before = pc.poseidon_wires_cuda.launches
+        before = (pc.poseidon_wires_waves_cuda.launches,
+                  pc.pow_grind_cuda.launches)
         proof = sess.prove(pw, rng=random.Random(11))
-        assert (pc.poseidon_wires_cuda.launches > before) == (where == dev)
+        after = (pc.poseidon_wires_waves_cuda.launches,
+                 pc.pow_grind_cuda.launches)
+        assert after == ((before[0] + 1, before[1] + 1) if where == dev
+                         else before)
         assert proof.public_inputs == root
         sess.verify(proof)
         blobs[str(where)] = serialize_proof(proof)
@@ -437,45 +442,53 @@ def test_session_reuses_the_build_commitment_on_the_default_device(dev):
     assert ProverSession(data).context.cs_batch is cs
 
 
-def _wave(G, seed, dev):
-    """A slot buffer with a Poseidon wave of G rows at scattered slots:
-    (values, dep_idx (13, G), out_idx (122, G)); the first half of the
-    rows take boundary inputs, the swap wires are 0 and 1 at random."""
-    rng = np.random.default_rng(seed)
-    n_slots = 135 * G + 5
-    slots = rng.permutation(n_slots)[:135 * G].astype(np.int32)
-    dep, out = slots[:13 * G].reshape(13, G), slots[13 * G:].reshape(122, G)
-    buf = rng.integers(0, P, size=n_slots, dtype=np.uint64)
-    buf[dep[:12, :G // 2]] = BOUNDARY[rng.integers(0, 5, size=(12, G // 2))]
-    buf[dep[12]] = rng.integers(0, 2, size=G)
-    return (from_u64(buf, dev), torch.from_numpy(dep).to(dev),
-            torch.from_numpy(out).to(dev))
-
-
-@pytest.mark.parametrize("G", [1, 33, (1 << 12) + 5])
-def test_poseidon_wires_kernel(dev, G):
-    """K7 writes the wave its plain version writes, word for word, and
-    flags a swap wire of 2 as the plain version does."""
+@pytest.mark.parametrize("sizes", [(1,), (33,), ((1 << 12) + 5,),
+                                   (1 << 14, 1 << 10, 1 << 6, 2, 1),
+                                   (5, 3, 1, 1, 1, 1, 1)])
+def test_poseidon_wires_kernel(dev, sizes):
+    """K7 writes the waves its plain version writes, word for word, in one
+    launch: one wave, and chains of waves that read the wave before (the
+    cross-block reads go through L2; chip_smoke.py:wave_chain, boundary
+    values in odd rows, swaps mixed); a swap wire of 2 in the last wave
+    sets the flag as the plain version does."""
+    from chip_smoke import wave_chain
     from plonky2_tpu_torch.hash import poseidon_wires as pw
-    values, dep, out = _wave(G, G, dev)
+    values, dep, out, offsets = wave_chain(np.random.default_rng(sum(sizes)),
+                                           sizes, dev)
     for bad in (False, True):
         if bad:
-            values[dep[12, G // 2]] = 2
+            values[dep[12, offsets[-2]]] = 2
         got, want = values.clone(), values.clone()
         e_got, e_want = (torch.zeros(1, dtype=torch.int32, device=dev)
                          for _ in range(2))
-        before = pc.poseidon_wires_cuda.launches
-        pc.poseidon_wires_cuda(got, dep, out, e_got)
-        assert pc.poseidon_wires_cuda.launches == before + 1
-        pw.poseidon_wires(want, dep, out, e_want)
+        before = pc.poseidon_wires_waves_cuda.launches
+        pc.poseidon_wires_waves_cuda(got, dep, out, offsets, e_got)
+        assert pc.poseidon_wires_waves_cuda.launches == before + 1
+        pw.poseidon_wires_waves(want, dep, out, offsets, e_want)
         _equal(got, want)
         assert bool(e_got.item()) == bool(e_want.item()) == bad
 
 
+@pytest.mark.parametrize("bits", [0, 1, 2, 4, 8, 12, 16])
+def test_pow_grind_kernel(dev, bits):
+    """K8 finds its plain version's witness at every position, from 0 and
+    from an offset; at 1-4 bits many candidates of a chunk pass."""
+    rng = np.random.default_rng(bits)
+    for word in range(8):
+        base = from_u64(rng.integers(0, P, size=12, dtype=np.uint64), dev)
+        for start in (0, 1000 + word):
+            before = pc.pow_grind_cuda.launches
+            got = pc.pow_grind_cuda(base, word, bits, start)
+            assert pc.pow_grind_cuda.launches == before + 1
+            assert got == pc.pow_grind(base, word, bits, start,
+                                       batch=1 << 16)
+
+
 def test_device_witness_plan_on_card_matches_host(dev):
     """The witness plan of the hash tree of 2^5 leaves on the card: one K7
-    launch a Poseidon wave (5 levels and the public inputs' hash), and the
-    host engine's wires and public inputs from the same random stream."""
+    launch for its six Poseidon waves (5 levels and the public inputs'
+    hash), and the host engine's wires and public inputs from the same
+    random stream."""
     import random
 
     from plonky2_tpu_torch.iop.device_witness import build_plan
@@ -485,9 +498,9 @@ def test_device_witness_plan_on_card_matches_host(dev):
     data, pw, root = build_hash_tree_circuit(CircuitConfig.wide_ecc_config(),
                                              5, device=dev)
     plan = build_plan(data.prover_only, data.common, pw, dev)
-    before = pc.poseidon_wires_cuda.launches
+    before = pc.poseidon_wires_waves_cuda.launches
     wires, pis = plan.run(pw, random.Random(5))
-    assert pc.poseidon_wires_cuda.launches == before + 6
+    assert pc.poseidon_wires_waves_cuda.launches == before + 1
     assert wires.device.type == "cuda"
     host = generate_partial_witness(pw, data.prover_only, data.common,
                                     rng=random.Random(5))

@@ -30,8 +30,8 @@ from plonky2_tpu.field import gf_jax as jgf
 from plonky2_tpu.iop.device_witness import build_plan as jax_build_plan
 from plonky2_tpu.utils.serialization import serialize_proof as jax_serialize
 from plonky2_tpu_torch.field.convert import to_u64
-from plonky2_tpu_torch.iop.device_witness import (_PlanMismatch, build_plan,
-                                                  get_plan)
+from plonky2_tpu_torch.iop.device_witness import (_PlanMismatch, _WaveRun,
+                                                  build_plan, get_plan)
 from plonky2_tpu_torch.iop.generator import (ConstantGenerator,
                                              generate_partial_witness)
 from plonky2_tpu_torch.iop.witness import PartialWitness
@@ -81,6 +81,21 @@ def test_plan_witness_equals_host_engine(name, size, classes):
     (_, _, _), (td, tpw, expected) = circuits(name, size)
     plan, wires, pis, host = plan_and_host(td, tpw, SEED)
     assert {w.cls.__name__ for w in plan.waves} == classes
+    # every maximal run of Poseidon waves is one step (one K7 launch on a
+    # card), its index arrays side by side; the other waves step alone
+    expanded = []
+    for s in plan.steps:
+        if isinstance(s, _WaveRun):
+            assert s.dep.shape[1] == s.out.shape[1] == s.offsets[-1]
+            expanded += [s.cls] * (len(s.offsets) - 1)
+        else:
+            expanded.append(s.cls)
+    assert expanded == [w.cls for w in plan.waves]
+    assert not any(isinstance(a, _WaveRun) and isinstance(b, _WaveRun)
+                   and a.cls is b.cls
+                   for a, b in zip(plan.steps, plan.steps[1:]))
+    if name == "hash_tree":     # the Constant wave, then one run
+        assert [type(s) for s in plan.steps][1:] == [_WaveRun]
     np.testing.assert_array_equal(wires, host.full_witness())
     assert pis == host.get_targets(td.prover_only.public_inputs) == expected
 

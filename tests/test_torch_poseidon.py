@@ -239,9 +239,13 @@ def _dot_reduce(d):
     return np.where(r < t, r - t - _EPS, r - t)
 
 
-def lane_split_permute(states: np.ndarray, G: int) -> np.ndarray:
+def lane_split_permute(states: np.ndarray, G: int, rec=None) -> np.ndarray:
     """(B, 12) uint64 states -> (B, 12) canonical, as permute_lanes<G>
-    computes them: slot k of lane l holds word l + G k."""
+    computes them: slot k of lane l holds word l + G k.  ``rec``, where
+    given, sees what the kernel's recorder sees: rec.full(r, lane, word,
+    value) for each lane's words after round r's constant layer (r = 0..7:
+    full rounds 0-3 and the last four) and rec.partial(r, s0) with every
+    lane's s0 (B, G) before partial round r's S-box."""
     pos = tpos
     K = -(-12 // G)
     lane = np.arange(G)
@@ -263,7 +267,12 @@ def lane_split_permute(states: np.ndarray, G: int) -> np.ndarray:
 
     def full_round(r):
         nonlocal st
-        st = np.where(valid, _sbox(_add_nc(st, rc[r][wc])), st)
+        x = _add_nc(st, rc[r][wc])
+        if rec is not None:
+            for lane_, k in zip(*np.nonzero(valid)):
+                rec.full(r if r < 4 else r - 22, lane_, words[lane_, k],
+                         x[:, lane_, k])
+        st = np.where(valid, _sbox(x), st)
         x = [word(c) for c in range(12)]
         for k in range(K):
             w = wc[:, k]
@@ -296,6 +305,8 @@ def lane_split_permute(states: np.ndarray, G: int) -> np.ndarray:
             while o < G:      # __shfl_xor_sync of the five limbs
                 d = _dot_merge(d, d[:, lane ^ o])
                 o <<= 1
+            if rec is not None:
+                rec.partial(r, s0)
             x0 = _add_nc(_sbox(s0), prc[r])
             d = _dot_merge(d, _limbs(*_mul_wide(x0, ms0)))
             for k in range(K):
@@ -326,6 +337,78 @@ def test_lane_split_model_matches_permute_ints(G):
     got = lane_split_permute(st, G)
     for row, want in zip(got, st):
         assert [int(v) for v in row] == tpos.permute_ints(want)
+
+
+def _canon(x):
+    return np.where(x >= np.uint64(P), x - np.uint64(P), x)
+
+
+class WireRecorder:
+    """csrc/poseidon.cu:WireRecorder over the numpy model: each put(wire,
+    lane, value) is kept with its writer lane."""
+
+    def __init__(self):
+        self.writes = {}
+
+    def put(self, wire, lane, value):
+        self.writes.setdefault(int(wire), []).append((int(lane),
+                                                      _canon(value)))
+
+    def full(self, r, lane, w, x):
+        if r > 0:
+            self.put((4 + 12 * (r - 1) if r < 4 else 62 + 12 * (r - 4)) + w,
+                     lane, x)
+
+    def partial(self, r, s0):
+        self.put(40 + r, 0, s0[:, 0])      # lane 0 of every lane's s0
+
+
+def lane_split_wires(dep: np.ndarray):
+    """K7's row (poseidon_waves_kernel) over 4 lanes, in numpy: (B, 13)
+    inputs and swap wire -> the recorder's writes, wire -> [(lane, (B,)
+    values)].  Lane l holds words l, l + 4 and l + 8: it computes delta l
+    and its swap in place, records its words' S-box inputs and outputs,
+    and lane 0 the partial rounds' s0."""
+    G = 4
+    rec = WireRecorder()
+    ins, swap = dep[:, :12].copy(), dep[:, 12]
+    with np.errstate(over="ignore"):
+        for lane in range(G):
+            a, b = ins[:, lane], ins[:, lane + 4]
+            rec.put(lane, lane, _mul(swap, _canon(b - a + np.where(
+                b < a, np.uint64(P), np.uint64(0)))))
+            ins[:, lane], ins[:, lane + 4] = (np.where(swap == 1, b, a),
+                                              np.where(swap == 1, a, b))
+    out = lane_split_permute(ins, G, rec)
+    for w in range(12):
+        rec.put(110 + w, w % G, out[:, w])
+    return rec.writes
+
+
+def test_k7_lane_map_writes_each_wire_once():
+    """Every one of a row's 122 wires has exactly one writer lane (deltas
+    and full-round wires: the lane of the word, w % 4; the partial rounds:
+    lane 0), and the values are poseidon_wire_batch's, on random and
+    boundary inputs under both swaps."""
+    from plonky2_tpu_torch.field.convert import from_u64
+    from plonky2_tpu_torch.hash import poseidon_wires as pw
+    rng = np.random.default_rng(12)
+    dep = _rand((16, 13), 13)
+    dep[:6, :12] = BOUNDARY[rng.integers(0, 5, size=(6, 12))]
+    dep[:, 12] = rng.integers(0, 2, size=16)
+    writes = lane_split_wires(dep)
+    assert sorted(writes) == list(range(pw.NUM_OUTPUT_WIRES))
+    assert all(len(v) == 1 for v in writes.values())
+    lanes = {k: v[0][0] for k, v in writes.items()}
+    word = {k: (k - 4) % 12 if 4 <= k < 40 else (k - 62) % 12
+            for k in list(range(4, 40)) + list(range(62, 110))}
+    assert all(lanes[k] == k for k in range(4))
+    assert all(lanes[k] == word[k] % 4 for k in word)
+    assert all(lanes[k] == 0 for k in range(40, 62))
+    assert all(lanes[110 + w] == w % 4 for w in range(12))
+    want = convert.to_u64(pw.poseidon_wire_batch(from_u64(dep)))
+    got = np.stack([writes[k][0][1] for k in range(pw.NUM_OUTPUT_WIRES)])
+    np.testing.assert_array_equal(got, want)
 
 
 def test_wrappers_reject_wrong_dtype():

@@ -6,7 +6,9 @@ version of kernel K7) against the JAX package, on the CPU.
 ``PoseidonGenerator.run_batch``, exactly, for G in {1, 7, 64} rows of
 random values and of the boundary values 0, 1, 2^32 - 1, 2^32 and p - 1,
 under both swap settings.  ``poseidon_wires`` (gather, wave, scatter)
-equals a reference indexed by hand, and flags a swap wire of 2."""
+equals a reference indexed by hand, and flags a swap wire of 2; a run of
+dependent waves (``poseidon_wires_waves``, K7's plain version, and its
+wrapper on the CPU) equals the waves computed one by one."""
 import jax
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ from plonky2_tpu.hash.poseidon_wires_jax import \
     poseidon_wire_batch as jax_wire_batch
 from plonky2_tpu_torch.field.convert import from_u64, to_u64
 from plonky2_tpu_torch.gates.poseidon_gate import PoseidonGenerator
+from plonky2_tpu_torch.hash import poseidon_cuda as pc
 from plonky2_tpu_torch.hash import poseidon_wires as pw
 from tests.test_torch_prover import one_torch_thread  # noqa: F401
 from tests.test_torch_prover import P
@@ -80,3 +83,52 @@ def test_gather_wave_scatter_equals_hand_indexed():
     pw.poseidon_wires(values, torch.from_numpy(dep_idx),
                       torch.from_numpy(out_idx), err)
     assert int(err[0]) != 0
+
+
+def chain(rng, sizes):
+    """chip_smoke.py:wave_chain on the CPU: (buf uint64, dep_idx, out_idx
+    as int32 numpy arrays, offsets)."""
+    from chip_smoke import wave_chain
+    values, dep, out, offsets = wave_chain(rng, sizes, "cpu")
+    return to_u64(values), dep.numpy(), out.numpy(), offsets
+
+
+def test_waves_run_equals_waves_one_by_one():
+    """A chain of six dependent waves: the run (the wrapper on a CPU
+    tensor takes K7's plain version) equals the numpy generator's waves
+    one after the other, and the plain wave run one by one; a swap wire
+    of 2 in a later wave sets the flag."""
+    rng = np.random.default_rng(21)
+    buf, dep, out, offsets = chain(rng, (16, 8, 4, 2, 1, 1))
+    want = buf.copy()
+    for a, b in zip(offsets, offsets[1:]):
+        want[out[:, a:b]] = PoseidonGenerator.run_batch(
+            None, want[dep[:, a:b]].T).T
+    dep_t, out_t = torch.from_numpy(dep), torch.from_numpy(out)
+    values, err = from_u64(buf), torch.zeros(1, dtype=torch.int32)
+    pc.poseidon_wires_waves_cuda(values, dep_t, out_t, offsets, err)
+    np.testing.assert_array_equal(to_u64(values), want)
+    one_by_one = from_u64(buf)
+    for a, b in zip(offsets, offsets[1:]):
+        pw.poseidon_wires(one_by_one, dep_t[:, a:b], out_t[:, a:b], err)
+    np.testing.assert_array_equal(to_u64(one_by_one), want)
+    assert int(err[0]) == 0
+    # a run of the middle waves reads what the first wave wrote
+    part = from_u64(buf)
+    pw.poseidon_wires(part, dep_t[:, :16], out_t[:, :16], err)
+    pc.poseidon_wires_waves_cuda(part, dep_t, out_t, offsets[1:4], err)
+    assert (to_u64(part)[out[:, :offsets[3]]] == want[out[:, :offsets[3]]]
+            ).all()
+    buf[dep[12, offsets[3]]] = 2
+    pw.poseidon_wires_waves(from_u64(buf), dep_t, out_t, offsets, err)
+    assert int(err[0]) != 0
+
+
+def test_waves_wrapper_rejects_bad_offsets():
+    rng = np.random.default_rng(3)
+    buf, dep, out, _ = chain(rng, (4, 2))
+    args = (from_u64(buf), torch.from_numpy(dep), torch.from_numpy(out))
+    err = torch.zeros(1, dtype=torch.int32)
+    for offsets in ((0,), (0, 7), (2, 1, 6), (-1, 6)):
+        with pytest.raises(ValueError, match="offsets"):
+            pc.poseidon_wires_waves_cuda(*args, offsets, err)
