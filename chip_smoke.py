@@ -17,7 +17,9 @@ whole proof after the witness:
 * the opening round (plonk/prover.py:opening_round, phases 7-8): zeta, the
   opening set of the four oracles' 354 polynomials, the FRI composition
   over the 2^21-point LDE, four fold layers of arity 16, the proof of work
-  (16 bits) and 28 query rounds, on the two rounds' commitments;
+  (16 bits) and 28 query rounds, on the two rounds' commitments, through
+  the fused FRI (its transcript on the card: kernel K9, the grind K8 on
+  its state), held equal to the layered FRI's proof;
 * the whole proof after the witness (plonk/prover.py:prove, phases 2-8),
   from the same witness, and at 2^10 rows the card's proof against the one
   the same machine makes with device="cpu";
@@ -31,8 +33,8 @@ whole proof after the witness:
   18 Poseidon waves in one launch), the plan's witness held equal to the
   host engine's,
   every proof equal to the pinned flagship proof (sha256), and the port's
-  verifier on every proof and on a corrupted copy; the FRI proof-of-work
-  grind of every proof runs on the card (kernel K8).
+  verifier on every proof and on a corrupted copy; the FRI's transcript
+  and proof-of-work grind of every proof run on the card (K9, K8).
 
 The script builds the kernels from csrc/ with nvcc (one process per
 source, in parallel), holds each kernel, in each of its forms (K3 and K5
@@ -168,6 +170,8 @@ TPU_KERNELS = {
            "plonky2_tpu/hash/poseidon_wires_jax.py:153"),
     "K8": ("K8 pow_grind (port-only)",
            "plonky2_tpu/fri/device_prover.py:447"),
+    "K9": ("K9 sponge (port-only)",
+           "plonky2_tpu/iop/challenger_jax.py:32"),
 }
 NTT_CU = "plonky2_tpu_torch/csrc/ntt.cu"
 KERNELS = {
@@ -189,19 +193,23 @@ KERNELS = {
                                  "waves, one launch)",
                                  "plonky2_tpu_torch/csrc/poseidon.cu"),
     "plk_pow_grind": ("K8", "pow_grind", "plonky2_tpu_torch/csrc/poseidon.cu"),
+    "plk_sponge": ("K9", "sponge (the transcript's duplex sponge)",
+                   "plonky2_tpu_torch/csrc/poseidon.cu"),
 }
 # the kernels each main path runs
 COMMIT_PATH = ("plk_hash_leaves", "plk_compress_level", "plk_compress_tail",
                "plk_ntt_cols_dit", "plk_ntt_rows_dit", "plk_ntt_cols_dif",
                "plk_ntt_rows_dif")
 QUOTIENT_PATH = tuple(e for e in KERNELS if e not in (
-    "plk_poseidon_wires_waves", "plk_pow_grind"))
-# the opening round grinds its proof of work (K8)
-OPENING_PATH = COMMIT_PATH + ("plk_pow_grind",)
+    "plk_poseidon_wires_waves", "plk_pow_grind", "plk_sponge"))
+# the opening round's FRI runs its transcript on the card (K9) and grinds
+# its proof of work there (K8)
+FRI_PATH = ("plk_pow_grind", "plk_sponge")
+OPENING_PATH = COMMIT_PATH + FRI_PATH
 # a proof does not run K4: the quotient gathers its inputs from the
 # commitments' leaves; phase 6 runs the natural-order LDE beside the round
 PROVE_PATH = tuple(e for e in QUOTIENT_PATH
-                   if e != "plk_ntt_cols_zero_tail") + ("plk_pow_grind",)
+                   if e != "plk_ntt_cols_zero_tail") + FRI_PATH
 # the session's proof generates its witness too (K7)
 SESSION_PATH = PROVE_PATH + ("plk_poseidon_wires_waves",)
 # the flagship witness plan's Poseidon waves, 2^16 rows down to 1, then the
@@ -352,11 +360,24 @@ def launch_cost(name: str, args, pow_witness=None) -> tuple:
         return (G * (8 + 4) * (13 + 122) + 8 * (a["n_waves"] + 1),
                 G * (PERM_MULS + 4 * FIELD_MUL_MULS), G * PERM_FP64_FMAS)
     if name == "plk_pow_grind":
-        # the 12 words read and the witness written; one permutation for
-        # each candidate from start up to the witness
+        # the 12 words read and the witness written (twice on the
+        # sponge); one permutation for each candidate from start up to the
+        # witness
         check(pow_witness is not None, "K8's bound needs its witness")
         perms = pow_witness - a["start"] + 1
-        return 8 * 12 + 8, perms * PERM_MULS, perms * PERM_FP64_FMAS
+        return (8 * 12 + 8 * (2 if a["slot"] else 1), perms * PERM_MULS,
+                perms * PERM_FP64_FMAS)
+    if name == "plk_sponge":
+        # the buffer read and written, the words absorbed, the draws (and
+        # indices) and powers written; the permutations its buffering needs
+        from plonky2_tpu_torch.hash.poseidon_cuda import (SPONGE_WORDS,
+                                                          sponge_lengths)
+        words = a["rows"] * a["cols"]
+        perms = sponge_lengths(a["n_in"], a["n_out"], words,
+                               a["n_draws"])[2]
+        nbytes = 8 * (2 * SPONGE_WORDS + words + a["n_draws"]
+                      * (2 if a["idx"] else 1) + 2 * a["arity"])
+        return nbytes, perms * PERM_MULS, perms * PERM_FP64_FMAS
     if name == "plk_constraint_program":
         # the linear form's 64x64 products on every lane; the input rows it
         # reads read once and its outputs written once, plus its op stream,
@@ -648,7 +669,68 @@ def phase_kernels(dev) -> dict:
                                               batch=1 << 16)])
         compare("plk_pow_grind", f"{bits} bits, word {word}, start {start}",
                 kernel, plain, timed=(bits, word, start) == (16, 0, 0))
+    # K8 on the transcript's sponge (the fused FRI's form): the duplex
+    # input state from K9's buffer at every pending count, 0-20 bits; the
+    # witness written into the pending slot, the rest of the buffer kept
+    for bits, n_in in ((0, 0), (1, 1), (2, 2), (4, 3), (8, 4), (12, 5),
+                       (16, 6), (20, 7), (16, 0)):
+        buf = rand_field(rng, (pc.SPONGE_WORDS,), dev)
+        buf[(bits + 5) % 12] = boundary_field(rng, (1,), dev)[0]
+
+        def kernel():
+            b = buf.clone()
+            return torch.cat([pc.pow_grind_sponge_cuda(b, n_in, bits), b])
+
+        def plain():
+            b = buf.clone()
+            b[pos.WIDTH + n_in] = pc.pow_grind(pc.duplex_input(buf, n_in),
+                                               n_in, bits, batch=1 << 16)
+            return torch.cat([b[pos.WIDTH + n_in:pos.WIDTH + n_in + 1], b])
+        compare("plk_pow_grind", f"on the sponge, {bits} bits, {n_in} "
+                "pending", kernel, plain)
+        if (bits, n_in) == (16, 0):
+            res["grind_record"] = grind_record(dev)
+    # K9 on random buffers: a FRI layer's launch (a 16-digest cap, beta
+    # and its 16 powers), the final polynomial's (4 of 32 coefficients in
+    # rows of 32), the launch after the grind (the witness pending, then
+    # the response and 28 query indices), and every pending count with
+    # words on and off the rate boundary, refills and a full buffer
+    cases = [("FRI layer: cap of 16 digests, beta and 16 powers", 3, 0,
+              rand_field(rng, (4, 16), dev), 2, 0, 16),
+             ("final polynomial: 4 coefficients", 2, 0,
+              rand_field(rng, (2, 32), dev)[:, :4], 0, 0, 0),
+             ("after the grind: response and 28 indices", 8, 0, None, 29,
+              (1 << 21) - 1, 0)]
+    for n_in in (0, 1, 5, 7, 8):
+        cases.append((f"{n_in} pending, 13 words, 11 draws", n_in,
+                      int(rng.integers(0, 9)), rand_field(rng, (1, 13), dev),
+                      11, 0, 0))
+        cases.append((f"{n_in} pending, no words, 17 draws, 4 powers", n_in,
+                      int(rng.integers(0, 9)), None, 17, 1023, 4))
+    for what, n_in, n_out, src, n_draws, mask, arity in cases:
+        buf = rand_field(rng, (pc.SPONGE_WORDS,), dev)
+
+        def run(fn):
+            b = buf.clone()
+            out = fn(b, n_in, n_out, src, n_draws, mask, arity)
+            return torch.cat([o.reshape(-1) for o in out if o is not None]
+                             + [b])
+        compare("plk_sponge", what, lambda: run(pc.sponge_cuda),
+                lambda: run(pc.sponge), timed=what.startswith("FRI layer"))
     return res
+
+
+def grind_record(dev) -> dict:
+    """K8's record of its last launch (hash/poseidon_cuda.py:grind_scratch):
+    its span on the card's clock, its rounds and its answer."""
+    from plonky2_tpu_torch.field.convert import to_u64
+    from plonky2_tpu_torch.hash import poseidon_cuda as pc
+    r = [int(x) for x in to_u64(pc.grind_scratch(dev))]
+    out = {"span_ms": (r[2] - r[1]) / 1e6, "rounds": r[3], "witness": r[4]}
+    log(f"  K8's last launch: {out['rounds']} rounds of the resident grid, "
+        f"{out['span_ms']:.4f} ms from block 0's entry to its exit "
+        f"(witness {out['witness']})")
+    return out
 
 
 def wave_chain(rng, sizes, dev, swap=None, rows=False):
@@ -855,30 +937,35 @@ def phase_witness_waves(dev) -> dict:
 
 
 def wrappers() -> dict:
-    """C entry -> the wrapper that launches it (and counts launches)."""
+    """C entry -> the wrappers that launch it (each counts its launches)."""
     from plonky2_tpu_torch.hash import poseidon_cuda as pc
     from plonky2_tpu_torch.ops import ntt_cuda as nc
     from plonky2_tpu_torch.plonk import constraint_program_cuda as cpc
-    return {"plk_hash_leaves": pc.hash_leaves_cols_cuda,
-            "plk_compress_level": pc.compress_level_cuda,
-            "plk_compress_tail": pc.compress_tail_cuda,
-            "plk_ntt_cols_dit": nc.ntt_cols_cuda,
-            "plk_ntt_rows_dit": nc.ntt_rows_cuda,
-            "plk_ntt_cols_zero_tail": nc.ntt_cols_zero_tail_cuda,
-            "plk_ntt_cols_dif": nc.ntt_cols_dif_cuda,
-            "plk_ntt_rows_dif": nc.ntt_rows_dif_cuda,
-            "plk_constraint_program": cpc.run_program_cuda,
-            "plk_poseidon_wires_waves": pc.poseidon_wires_waves_cuda,
-            "plk_pow_grind": pc.pow_grind_cuda}
+    return {"plk_hash_leaves": (pc.hash_leaves_cols_cuda,),
+            "plk_compress_level": (pc.compress_level_cuda,),
+            "plk_compress_tail": (pc.compress_tail_cuda,),
+            "plk_ntt_cols_dit": (nc.ntt_cols_cuda,),
+            "plk_ntt_rows_dit": (nc.ntt_rows_cuda,),
+            "plk_ntt_cols_zero_tail": (nc.ntt_cols_zero_tail_cuda,),
+            "plk_ntt_cols_dif": (nc.ntt_cols_dif_cuda,),
+            "plk_ntt_rows_dif": (nc.ntt_rows_dif_cuda,),
+            "plk_constraint_program": (cpc.run_program_cuda,),
+            "plk_poseidon_wires_waves": (pc.poseidon_wires_waves_cuda,),
+            # on the transcript's sponge (fused FRI) and from host words
+            # (layered FRI)
+            "plk_pow_grind": (pc.pow_grind_sponge_cuda, pc.pow_grind_cuda),
+            "plk_sponge": (pc.sponge_cuda,)}
 
 
 def reset_launch_counts():
-    for w in wrappers().values():
-        w.launches = 0
+    for ws in wrappers().values():
+        for w in ws:
+            w.launches = 0
 
 
 def read_launch_counts() -> dict:
-    return {entry: w.launches for entry, w in wrappers().items()}
+    return {entry: sum(w.launches for w in ws)
+            for entry, ws in wrappers().items()}
 
 
 @contextlib.contextmanager
@@ -1401,17 +1488,31 @@ class StageTimer:
 
 class FriSpy:
     """Keeps what the last FRI proof computed, for the checks: the
-    composition's arguments and result, each fold's input, beta and
-    output, the proof of work's duplex state, witness position, bits and
-    witness, the layer trees and the query indices (wraps four functions
-    of fri/device_prover.py; launches and results are untouched)."""
+    composition's arguments and result, each fold's input, beta (or its
+    powers on the card) and output, the proof of work's duplex state,
+    witness position, bits and witness, the layer trees and the query
+    indices (wraps four functions of fri/device_prover.py and
+    DeviceChallenger.grind; launches and results are untouched)."""
     NAMES = ("device_composition", "fold_coeffs", "fri_proof_of_work",
              "fri_prover_query_rounds")
 
     def __enter__(self):
         from plonky2_tpu_torch.fri import device_prover as tdp
+        from plonky2_tpu_torch.hash import poseidon_cuda as pc
+        from plonky2_tpu_torch.iop.challenger_torch import DeviceChallenger
         self.mod = tdp
         self.orig = {n: getattr(tdp, n) for n in self.NAMES}
+        self.dc, self.dc_grind = DeviceChallenger, DeviceChallenger.grind
+
+        def sponge_grind(dch, bits):
+            # the grind's own flush first (the final polynomial); the
+            # state stays on the card until the checks
+            dch.flush()
+            state, word = pc.duplex_input(dch.buf, dch.n_in), dch.n_in
+            witness = self.dc_grind(dch, bits)
+            self.grind = (state, word, bits, witness)
+            return witness
+        DeviceChallenger.grind = sponge_grind
 
         def composition(*args):
             out = self.orig["device_composition"](*args)
@@ -1445,7 +1546,55 @@ class FriSpy:
     def __exit__(self, *exc):
         for n, f in self.orig.items():
             setattr(self.mod, n, f)
+        self.dc.grind = self.dc_grind
         return False
+
+
+@contextlib.contextmanager
+def fri_path(path: str, counts: dict):
+    """The opening proof's FRI through `path` ("fused" or "layered"); in
+    each FRI (fri/device_prover.py:device_fri_proof, from the first
+    layer's commit to the proof), counts the synchronising calls torch
+    reports (torch.cuda.set_sync_debug_mode("warn")), the fused path's
+    waits for its copies to the host (one a layer's cap, one the final
+    download) and the host transcript's permutations."""
+    import warnings
+    import torch
+    from plonky2_tpu_torch.fri import device_prover as tdp
+    from plonky2_tpu_torch.hash import poseidon as pos
+    inner = {"fused": tdp._device_fri_proof_fused,
+             "layered": tdp._device_fri_proof_layered}[path]
+    orig, orig_get, orig_perm = (tdp.device_fri_proof, tdp._HostCopy.get,
+                                 pos.permute_ints)
+    for k in ("syncs", "waits", "permutations", "calls"):
+        counts.setdefault(k, 0)
+
+    def get(copy):
+        counts["waits"] += copy.event is not None
+        return orig_get(copy)
+
+    def permute(state):
+        counts["permutations"] += 1
+        return orig_perm(state)
+
+    def counted(*args, **kwargs):
+        counts["calls"] += 1
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            pos.permute_ints = permute
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                pos.permute_ints = orig_perm
+                torch.cuda.set_sync_debug_mode("default")
+                counts["syncs"] += sum("synchroniz" in str(w.message)
+                                       for w in seen)
+    tdp.device_fri_proof, tdp._HostCopy.get = counted, get
+    try:
+        yield counts
+    finally:
+        tdp.device_fri_proof, tdp._HostCopy.get = orig, orig_get
 
 
 def proof_words(obj):
@@ -1492,11 +1641,30 @@ def phase_opening_round(dev, full, quot):
         (openings, proof), res = timed_path(run, OPENING_PATH,
                                             "opening round")
         res["merkle_levels"] = log_merkle_levels(res)
-        timer = StageTimer()
-        t = time.perf_counter()
-        with count_host_permutations() as perms:
-            run(None, timer)
-        log_stages(timer, time.perf_counter() - t)
+        res["fri_paths"] = {}
+        for path in ("layered", "fused"):
+            # each stage synchronises: its own run, not counted
+            with fri_path(path, {}):
+                timer = StageTimer()
+                t = time.perf_counter()
+                with count_host_permutations() as perms:
+                    run(None, timer)
+                log(f"  {path} FRI, stages:")
+                log_stages(timer, time.perf_counter() - t)
+            counts = {}
+            with fri_path(path, counts):
+                other = run(None)
+            check(list(proof_words(other)) == list(proof_words(
+                (openings, proof))), f"the {path} FRI's proof differs")
+            check(counts.pop("calls") == 1, "one FRI a run")
+            log(f"  {path} FRI: the proof equals the first run's; in the "
+                f"FRI part {counts['syncs']} synchronising calls (torch's "
+                f"sync debug mode), {counts['waits']} waits for copies, "
+                f"{counts['permutations']} host permutations (the whole "
+                f"round: {perms[0]})")
+            res["fri_paths"][path] = {"stages_ms": timer.ms,
+                                      "round_permutations": perms[0],
+                                      **counts}
         res["stages_ms"] = timer.ms
         res["host"] = log_host_hashing(perms[0])
         res["profile"] = profile_run(lambda: run(None))
@@ -1545,9 +1713,12 @@ def check_grind_on_cpu(spy, proof) -> dict:
     """K8's witness (the proof's) against K8's plain version on the CPU
     from the same duplex state, position and bits; the plain version's
     time there."""
-    from plonky2_tpu_torch.field.convert import from_u64
+    from plonky2_tpu_torch.field.convert import from_u64, to_u64
     from plonky2_tpu_torch.hash import poseidon_cuda as pc
     state, word, bits, witness = spy.grind
+    if not isinstance(witness, int):    # the fused FRI's, on the card
+        state = [int(x) for x in to_u64(state)]
+        witness = int(to_u64(witness)[0])
     check(witness == proof.pow_witness, "the spied grind is not the proof's")
     t = time.perf_counter()
     plain = pc.pow_grind(from_u64(np.array(state, dtype=np.uint64)), word,
@@ -1662,6 +1833,9 @@ def check_folds(spy, proof, fp):
     shift = 7
     for i, ((coeffs, beta, arity, out), tree) in enumerate(
             zip(spy.folds, spy.trees)):
+        if isinstance(beta, torch.Tensor):      # beta's powers from K9
+            check(arity > 1, "no beta in the powers of an arity-1 fold")
+            beta = tuple(int(x) for x in to_u64(beta[:, 1]))
         if i == 0:
             prev = vals
         else:
@@ -1942,7 +2116,11 @@ def phase_session(dev) -> dict:
     log(f"  K7 on a warm proof: {k7_waves} waves, "
         f"{kernel_ms.get('plk_poseidon_wires_waves', 0.0):.4f} ms; K8: "
         f"{kernel_ms.get('plk_pow_grind', 0.0):.4f} ms for witness "
-        f"{pow_witness_of(proof)}")
+        f"{pow_witness_of(proof)}; K9: "
+        f"{kernel_ms.get('plk_sponge', 0.0):.4f} ms in "
+        f"{sum(n == 'plk_sponge' for n, _, _, _ in warm[-1]['records'])} "
+        f"launches, {cost['plk_sponge'][1] // PERM_MULS} permutations")
+    k8_record = grind_record(dev)
     for r in runs:
         del r["records"], r["kernel_ms"]
     session = {"cold_s": runs[0]["wall_s"],
@@ -1950,7 +2128,8 @@ def phase_session(dev) -> dict:
                "kernel_ms": kernel_ms, "cost": cost, "peak_bytes": peak,
                "runs": runs, "session_s": session_s, "profile": profile,
                "generators": dict(classes), "host_rss_gib": host_rss_gib(),
-               "plan_check": plan_check, "k7_waves": k7_waves}
+               "plan_check": plan_check, "k7_waves": k7_waves,
+               "k8_record": k8_record}
     return {"build": build, "session": session}
 
 
@@ -2116,6 +2295,15 @@ def kernels_line(kern, paths, smi, waves) -> dict:
             n = paths["session"]["k7_waves"]
             out[-1].update(session_waves=n,
                            latency_floor_ms=n * waves["perm_latency_ms"])
+        if key == "K8":
+            out[-1].update(record_phase3=kern.get("grind_record"),
+                           record_session=paths["session"]["k8_record"])
+        if key == "K9":
+            # its permutations one after another, each one 4-lane
+            # permutation's latency (phase 3c)
+            n = paths["session"]["cost"]["plk_sponge"][1] // PERM_MULS
+            out[-1].update(session_permutations=n,
+                           latency_floor_ms=n * waves["perm_latency_ms"])
     return {"kernels": out, "card": smi}
 
 
@@ -2174,7 +2362,8 @@ def main() -> int:
         for k, p in paths.items():
             for f in ("stages_ms", "merkle_levels", "host", "k2_before",
                       "runs", "session_s", "generators", "host_rss_gib",
-                      "plan_check", "grind", "k7_waves"):
+                      "plan_check", "grind", "k7_waves", "fri_paths",
+                      "k8_record"):
                 if f in p:
                     line["paths"][k][f] = p[f]
     with phase("11 int32 multiply rate and field-product SASS"):

@@ -1,6 +1,6 @@
 // Kernels K1 and K2: the Poseidon-12 leaf sponge and the Merkle levels;
-// K7 and K8 (at the end), which no TPU kernel has: the Poseidon gate's
-// witness waves and the FRI proof-of-work grind.
+// K7, K9 and K8 (at the end), which no TPU kernel has: the Poseidon gate's
+// witness waves, the transcript's sponge and the FRI proof-of-work grind.
 //
 // K1 replaces plonky2_tpu/hash/poseidon_pallas.py:hash_leaves_cols_pallas,
 // K2 replaces plonky2_tpu/hash/poseidon_pallas.py:compress_pairs_cols_pallas
@@ -617,51 +617,226 @@ poseidon_waves_kernel(uint64_t* values, const int32_t* __restrict__ dep_idx,
 }
 
 // ---------------------------------------------------------------------------
+// K9: the Fiat-Shamir transcript's duplex sponge (port-only).  The JAX
+// package runs its device transcript in XLA, with no Pallas kernel
+// (plonky2_tpu/iop/challenger_jax.py:DeviceChallenger); the plain version
+// here is hash/poseidon_cuda.py:sponge, and iop/challenger_torch.py:
+// DeviceChallenger issues one launch for each group of observations and
+// draws.  buf holds the sponge: the 12 state words, then the pending
+// inputs (8 slots, n_in of them in use); the outputs are the state's
+// first n_out words, as the host challenger's always are.  The lengths
+// are the caller's: the transcript's shape is known on the host, only the
+// values live here.  One launch, with the host challenger's discipline
+// (iop/challenger.py):
+//   * if a kernel filled the last pending slot (K8's witness), duplex;
+//   * absorb the rows * cols words of src, column by column (src[r * stride
+//     + c] is word c * rows + r: rows = 4 reads a cap's digests, rows = 2
+//     an extension polynomial's coefficients): each clears the outputs,
+//     and a full buffer of 8 duplexes (overwrite mode);
+//   * draw n_draws words to dst, popping the outputs from the end and
+//     duplexing first when inputs are pending or no output is left;
+//     where idx is given, also dst[d] & index_mask (the query indices);
+//     where powers is given, the powers beta^0 .. beta^(arity - 1) of
+//     beta = (dst[0], dst[1]) as a (2, arity) array (the fold's weights);
+//   * write the state and the pending inputs back.
+// A duplexing writes the pending inputs over the state's first words and
+// permutes; every state word is kept canonical.
+//
+// Bound on an H100: latency.  The FRI part of a flagship proof runs ~37
+// permutations in 6 launches (8 a layer's 16-digest cap, 1 the final
+// polynomial, 4 for the grind's witness, its response and the 28 query
+// indices), each depending on the one before: ~4k products each is
+// nothing for the card, so the floor is one permutation's latency after
+// another, ~0.02-0.03 ms each over four lanes (K2's narrow top, K7).
+//
+// Design: one warp, K2's split permutation (permute_lanes, four lanes a
+// state, tables in shared memory).  Every group of four lanes runs the same
+// permutation on the same words, so the warp's control stays uniform and
+// every lane holds the words its shuffles read; lane 0 writes.  A block of
+// up to 8 inputs is read by 8 lanes at once into shared memory, one
+// memory latency a duplexing.
+__device__ __forceinline__ void sponge_duplex(LaneState<TAIL_LANES>& st, int lane,
+                                              const uint64_t* pending, int n_in,
+                                              const TailTables& t) {
+#pragma unroll
+  for (int k = 0; k < LaneState<TAIL_LANES>::K; k++) {
+    const int w = lane + TAIL_LANES * k;
+    if (w < n_in) st.s[k] = pending[w];
+  }
+  permute_lanes(st, lane, t);
+#pragma unroll
+  for (int k = 0; k < LaneState<TAIL_LANES>::K; k++) st.s[k] = gl::canon(st.s[k]);
+}
+
+constexpr int SPONGE_THREADS = 32;
+
+__global__ void __launch_bounds__(SPONGE_THREADS, 1)
+sponge_kernel(uint64_t* buf, const uint64_t* __restrict__ src, int rows, int64_t stride,
+              int64_t cols, int n_in, int n_out, uint64_t* dst, int n_draws, uint64_t* idx,
+              uint64_t index_mask, uint64_t* powers, int arity) {
+  constexpr int K = LaneState<TAIL_LANES>::K;
+  __shared__ TailTables t;
+  __shared__ uint64_t pending[RATE];
+  load_tail_tables(t);
+  if (threadIdx.x < RATE) pending[threadIdx.x] = buf[WIDTH + threadIdx.x];
+  const int lane = threadIdx.x % TAIL_LANES;
+  LaneState<TAIL_LANES> st;
+#pragma unroll
+  for (int k = 0; k < K; k++) st.s[k] = buf[lane + TAIL_LANES * k];
+  __syncthreads();
+  if (n_in == RATE) {
+    sponge_duplex(st, lane, pending, n_in, t);
+    n_in = 0;
+    n_out = RATE;
+  }
+  const int64_t total = (int64_t)rows * cols;
+  for (int64_t k = 0; k < total;) {
+    const int64_t left = total - k;
+    const int take = left < RATE - n_in ? (int)left : RATE - n_in;
+    __syncwarp();  // the last duplexing has read the pending inputs
+    if (threadIdx.x < take) {
+      const int64_t e = k + threadIdx.x;
+      pending[n_in + threadIdx.x] = src[(e % rows) * stride + e / rows];
+    }
+    __syncwarp();
+    n_in += take;
+    n_out = 0;
+    k += take;
+    if (n_in == RATE) {
+      sponge_duplex(st, lane, pending, n_in, t);
+      n_in = 0;
+      n_out = RATE;
+    }
+  }
+  uint64_t beta0 = 0, beta1 = 0;
+  for (int d = 0; d < n_draws; d++) {
+    if (n_in > 0 || n_out == 0) {
+      sponge_duplex(st, lane, pending, n_in, t);
+      n_in = 0;
+      n_out = RATE;
+    }
+    n_out--;
+    // word n_out sits in slot n_out / 4 of lane n_out % 4 (no dynamic
+    // register index: the slot is selected)
+    const int slot = n_out / TAIL_LANES;
+    const uint64_t mine = slot == 0 ? st.s[0] : slot == 1 ? st.s[1] : st.s[2];
+    const uint64_t v = __shfl_sync(FULL_MASK, mine, n_out % TAIL_LANES, TAIL_LANES);
+    if (d == 0) beta0 = v;
+    if (d == 1) beta1 = v;
+    if (threadIdx.x == 0) {
+      dst[d] = v;
+      if (idx != nullptr) idx[d] = v & index_mask;
+    }
+  }
+  if (powers != nullptr && threadIdx.x == 0) {
+    // (p0 + p1 X)(b0 + b1 X) = p0 b0 + 7 p1 b1 + (p0 b1 + p1 b0) X
+    uint64_t p0 = 1, p1 = 0;
+    for (int i = 0; i < arity; i++) {
+      powers[i] = p0;
+      powers[arity + i] = p1;
+      const uint64_t q0 = gl::add(gl::mul(p0, beta0), gl::mul(gl::mul(p1, beta1), 7));
+      const uint64_t q1 = gl::add(gl::mul(p0, beta1), gl::mul(p1, beta0));
+      p0 = q0;
+      p1 = q1;
+    }
+  }
+  __syncwarp();
+  if (threadIdx.x < TAIL_LANES) {
+#pragma unroll
+    for (int k = 0; k < K; k++) buf[lane + TAIL_LANES * k] = st.s[k];
+  }
+  if (threadIdx.x < n_in) buf[WIDTH + threadIdx.x] = pending[threadIdx.x];
+}
+
+// ---------------------------------------------------------------------------
 // K8: the FRI proof-of-work grind (port-only).  The JAX package grinds in
-// XLA inside its fused FRI (plonky2_tpu/fri/device_prover.py:_fused_fri_fn,
-// no Pallas kernel); the plain version here is hash/poseidon_cuda.py:
-// pow_grind.  buf holds the 12 words of the duplex state (the pending
-// inputs written over the sponge state), then the answer (in: 2^64 - 1),
-// then a ticket counter (in: 0).  Candidate witness w sets word pos; it
-// passes if the canonical response, word 7 of the permuted state, is below
-// 2^(64 - bits) (every w at 0 bits).  The kernel writes the smallest
-// passing w in [start, limit), or leaves 2^64 - 1.
+// XLA inside its fused FRI (plonky2_tpu/fri/device_prover.py:_fused_fri_fn
+// :447-490, no Pallas kernel); the plain version here is
+// hash/poseidon_cuda.py:pow_grind.  The base state is the sponge's duplex
+// input: words j < n_in from inputs, the others from state (K9's buffer:
+// state = buf, inputs = buf + 12, and pos = n_in, the next pending slot;
+// the host-state form passes 12 words and n_in = 0).  Candidate witness w
+// sets word pos; it passes if the canonical response, word 7 of the
+// permuted state, is below 2^(64 - bits) (every w at 0 bits).  The kernel
+// writes the smallest passing w in [start, limit), or 2^64 - 1, to out and,
+// where given, to slot (K9's pending slot, which the next K9 launch
+// absorbs: no host between the grind and the draws after it).
 //
-// Bound on an H100: integer operations, one permutation a candidate; the
-// expected work at 16 bits is 2^16 permutations (~0.1 ms at K1's rate).
+// Bound on an H100: integer operations, one permutation a candidate up to
+// the witness (at 16 bits 2^16 expected, ~0.1 ms at K1's rate).
 //
-// Design: K1's permute, one thread a candidate, as many blocks as fit the
-// card.  A block takes chunks of blockDim.x candidates in increasing order
-// from the ticket (atomicAdd) and records a pass with atomicMin; it stops
-// once a chunk starts past limit or above the smallest pass so far.  Every
-// chunk that starts at or below the final answer is therefore finished
-// (the answer only falls), so the answer is the smallest pass, as the host
-// grind and the JAX package find it, and the proof stays byte-identical.
+// What its time was (scripts/port_pow_grind_step0.py, stamps at the
+// blocks' entries and exits beside CUDA events; H100 at 700 W, PERF.md):
+// the host's share between the events (the occupancy query, the launch)
+// was 0.01-0.02 ms; the rest was rounds of the resident grid (two blocks
+// of 128 an SM, 33,792 candidates), each as long as one thread's
+// permutation at that occupancy, ~0.076 ms (one block an SM, half the
+// candidates: ~0.065 ms), and blocks that took a new chunk from the ticket
+// before the pass was recorded ran part of a round more (0.083 -> 0.124
+// ms at the same witness).
+//
+// Design: K1's permute, one thread a candidate, the largest round the
+// registers allow (the resident grid, worked out once a device), and the
+// rounds in lockstep: a cooperative launch, a grid barrier after each
+// round, then every block reads the smallest pass (atomicMin) and all stop
+// together after the first round with one.  Every candidate below it was
+// tried in that round or an earlier one, so the answer is the smallest
+// pass, as the host grind and the JAX package find it, and the proof stays
+// byte-identical; no block starts a round after the pass.  The smallest
+// pass lives in scratch, a buffer kept for the card, which block 0 resets
+// after a last barrier, so a launch needs no upload before it and no
+// download after it.  scratch: [0] smallest pass (2^64 - 1 between
+// launches); the last launch's record: [1] block 0's entry, [2] its exit
+// (%globaltimer, ns), [3] rounds, [4] the answer.
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 __global__ void __launch_bounds__(THREADS, 1)
-pow_grind_kernel(unsigned long long* buf, int pos, int bits, uint64_t start, uint64_t limit) {
+pow_grind_kernel(const uint64_t* __restrict__ state, const uint64_t* __restrict__ inputs,
+                 int n_in, int pos, int bits, uint64_t start, uint64_t limit,
+                 unsigned long long* scratch, uint64_t* out, uint64_t* slot) {
   constexpr unsigned long long NONE = ~0ull;
-  __shared__ unsigned long long chunk;
-  unsigned long long* best = buf + WIDTH;
-  unsigned long long* ticket = buf + WIDTH + 1;
+  const unsigned long long t0 = global_ns();
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  __shared__ uint64_t base[WIDTH];
+  if (threadIdx.x < WIDTH)
+    base[threadIdx.x] = (int)threadIdx.x < n_in ? inputs[threadIdx.x] : state[threadIdx.x];
+  __syncthreads();
+  uint64_t b[WIDTH];
+#pragma unroll
+  for (int j = 0; j < WIDTH; j++) b[j] = base[j];
   // bits = 64: only a response of 0 passes
   const uint64_t bound = bits == 0 ? 0 : 1ull << (64 - bits);
-  for (;;) {
-    if (threadIdx.x == 0) {
-      const unsigned long long s = start + atomicAdd(ticket, 1ull) * blockDim.x;
-      chunk = s >= limit || s > __ldcg(best) ? NONE : s;
-    }
-    __syncthreads();
-    const unsigned long long s = chunk;
-    __syncthreads();  // every thread has read chunk before thread 0 rewrites it
-    if (s == NONE) return;
-    const uint64_t w = s + threadIdx.x;
+  const uint64_t round = (uint64_t)gridDim.x * blockDim.x;
+  unsigned long long found = NONE;
+  unsigned long long rounds = 0;
+  for (uint64_t s = start;;) {
+    const uint64_t w = s + (uint64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (w < limit) {
       uint64_t st[WIDTH];
 #pragma unroll
-      for (int j = 0; j < WIDTH; j++) st[j] = j == pos ? w : (uint64_t)__ldg(buf + j);
+      for (int j = 0; j < WIDTH; j++) st[j] = j == pos ? w : b[j];
       permute(st);
-      if (bits == 0 || gl::canon(st[RATE - 1]) < bound) atomicMin(best, (unsigned long long)w);
+      if (bits == 0 || gl::canon(st[RATE - 1]) < bound) atomicMin(scratch, (unsigned long long)w);
     }
+    grid.sync();
+    rounds++;
+    found = __ldcg(scratch);
+    s += round;
+    if (found != NONE || s >= limit) break;
+  }
+  grid.sync();  // every block has read the answer before block 0 resets it
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    out[0] = found;
+    if (slot != nullptr) slot[0] = found;
+    scratch[0] = NONE;
+    scratch[1] = t0;
+    scratch[2] = global_ns();
+    scratch[3] = rounds;
+    scratch[4] = found;
   }
 }
 
@@ -744,20 +919,52 @@ extern "C" int plk_poseidon_wires_waves(void* values, const void* dep_idx, const
   return (int)cudaGetLastError();
 }
 
-extern "C" int plk_pow_grind(void* buf, int pos, int bits, long long start, long long limit,
+// K8's grid: as many blocks as fit the card at once (a cooperative launch),
+// worked out once a device.
+extern "C" int plk_pow_grind(const void* state, const void* inputs, int n_in, int pos, int bits,
+                             long long start, long long limit, void* scratch, void* out, void* slot,
                              int device, void* stream) {
+  static int resident[64];
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (pos < 0 || pos >= WIDTH || bits < 0 || bits > 64 || start < 0 || limit < start)
+  if (device < 0 || device >= 64 || n_in < 0 || n_in > RATE || pos < 0 || pos >= WIDTH ||
+      bits < 0 || bits > 64 || start < 0 || limit < start)
     return (int)cudaErrorInvalidValue;
-  int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pow_grind_kernel, THREADS, 0);
+  if (resident[device] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pow_grind_kernel, THREADS, 0);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    resident[device] = per_sm * sms;
+    if (resident[device] == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+  }
+  const uint64_t* st = (const uint64_t*)state;
+  const uint64_t* in = (const uint64_t*)inputs;
+  uint64_t s0 = (uint64_t)start, lim = (uint64_t)limit;
+  unsigned long long* scr = (unsigned long long*)scratch;
+  uint64_t* o = (uint64_t*)out;
+  uint64_t* sl = (uint64_t*)slot;
+  void* args[] = {(void*)&st, (void*)&in, (void*)&n_in, (void*)&pos, (void*)&bits,
+                  (void*)&s0, (void*)&lim, (void*)&scr, (void*)&o, (void*)&sl};
+  err = cudaLaunchCooperativeKernel((const void*)pow_grind_kernel, dim3(resident[device]),
+                                    dim3(THREADS), args, 0, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int plk_sponge(void* buf, const void* src, int rows, long long stride, long long cols,
+                          int n_in, int n_out, void* dst, int n_draws, void* idx,
+                          long long index_mask, void* powers, int arity, int device,
+                          void* stream) {
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)(per_sm > 0 ? per_sm * sms : sms);
-  pow_grind_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (unsigned long long*)buf, pos, bits, (uint64_t)start, (uint64_t)limit);
+  if (rows < 1 || rows > 4 || cols < 0 || n_in < 0 || n_in > RATE || n_out < 0 || n_out > RATE ||
+      n_draws < 0 || arity < 0 || (powers != nullptr && n_draws < 2))
+    return (int)cudaErrorInvalidValue;
+  sponge_kernel<<<1, SPONGE_THREADS, 0, (cudaStream_t)stream>>>(
+      (uint64_t*)buf, (const uint64_t*)src, rows, (int64_t)stride, (int64_t)cols, n_in, n_out,
+      (uint64_t*)dst, n_draws, (uint64_t*)idx, (uint64_t)index_mask, (uint64_t*)powers, arity);
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,12 @@
 """FRI proof of work and query rounds.
 
 The port's counterpart of plonky2_tpu/fri/prover.py:fri_proof_of_work (the
-Poseidon branch) and ``fri_prover_query_rounds``.  The grind runs where the
-proof's tensors lie: on a CUDA device as one launch of kernel K8
-(hash/poseidon_cuda.py:pow_grind_cuda), as the JAX package's fused FRI
-grinds on its device, and on the CPU as K8's plain version.  Either finds
+Poseidon branch) and ``fri_prover_query_rounds``.  ``fri_proof_of_work`` is
+the layered FRI's grind, from the host challenger's state: it runs where
+the proof's tensors lie, on a CUDA device as one launch of kernel K8
+(hash/poseidon_cuda.py:pow_grind_cuda) and on the CPU as K8's plain
+version.  The fused FRI grinds on the card's transcript instead
+(iop/challenger_torch.py:DeviceChallenger.grind).  Either finds
 the smallest witness whose response has ``proof_of_work_bits`` leading
 zeros, as the JAX package's host grind does, so both packages find the
 same one.  The query rounds read rows and sibling paths from

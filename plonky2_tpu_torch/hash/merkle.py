@@ -1,10 +1,13 @@
 """Merkle caps, proofs and the device-resident tree.
 
 The port's counterpart of plonky2_tpu/hash/merkle.py: leaves and digest
-levels stay on the device and only the cap is copied back at construction;
-``prefetch`` fetches the rows and sibling paths of many queries with one
-round of indexing and one copy to the host.  Proofs verify against the cap
-on the host with the scalar permutation (hash/poseidon.py).
+levels stay on the device, and the cap is copied to the host when it is
+first read, so building a tree never waits for the card.  ``gather`` takes
+the rows and sibling paths of many queries on the device from device
+indices (the JAX package's ``tree_fetch`` in its fused FRI); ``prefetch``
+does the same from host indices with one copy to the host, and ``store``
+keeps rows and paths that came to the host with other data.  Proofs verify
+against the cap on the host with the scalar permutation (hash/poseidon.py).
 """
 from __future__ import annotations
 
@@ -38,9 +41,21 @@ class DeviceMerkleTree:
         self.leaves_dev = leaves_dev
         self.levels_dev = levels_dev
         self.cap_height = cap_height
-        self.cap = MerkleCap(to_u64(levels_dev[-1]).T.copy())
+        self._cap = None
         self._rows: dict = {}
         self._paths: dict = {}
+
+    @property
+    def cap(self) -> MerkleCap:
+        """The top level's digests on the host, copied on first read."""
+        if self._cap is None:
+            self.keep_cap(to_u64(self.levels_dev[-1]))
+        return self._cap
+
+    def keep_cap(self, top) -> None:
+        """Keep the top level (4, 2^h), already copied to the host, as the
+        cap."""
+        self._cap = MerkleCap(np.asarray(top, dtype=np.uint64).T.copy())
 
     @property
     def num_leaves(self) -> int:
@@ -48,6 +63,26 @@ class DeviceMerkleTree:
 
     def num_layers(self) -> int:
         return log2_strict(self.num_leaves) - self.cap_height
+
+    def gather(self, idx: torch.Tensor) -> torch.Tensor:
+        """Rows and whole sibling paths of the leaves at `idx` (an int64
+        tensor on the tree's device), on the device: (Q, L + 4 * layers),
+        the row, then the siblings from the leaf level up."""
+        parts = [self.leaves_dev[:, idx].T]                   # (Q, L)
+        cur = idx
+        for layer in range(self.num_layers()):
+            parts.append(self.levels_dev[layer][:, cur ^ 1].T)  # (Q, 4)
+            cur = cur >> 1
+        return torch.cat(parts, dim=1)
+
+    def store(self, indices, host: np.ndarray) -> None:
+        """Keep the rows and paths of ``gather(indices)``, copied to the
+        host as a (Q, L + 4 * layers) uint64 array."""
+        L = self.leaves_dev.shape[0]
+        for k, i in enumerate(int(i) for i in indices):
+            self._rows[i] = host[k, :L]
+            self._paths[i] = [host[k, L + 4 * j:L + 4 * (j + 1)]
+                              for j in range(self.num_layers())]
 
     def prefetch(self, indices) -> None:
         """Rows and whole sibling paths of many leaves in one gather."""
@@ -57,17 +92,7 @@ class DeviceMerkleTree:
             return
         idx = torch.tensor(todo, dtype=torch.int64,
                            device=self.leaves_dev.device)
-        parts = [self.leaves_dev[:, idx].T]                   # (Q, L)
-        cur = idx
-        for layer in range(self.num_layers()):
-            parts.append(self.levels_dev[layer][:, cur ^ 1].T)  # (Q, 4)
-            cur = cur >> 1
-        host = to_u64(torch.cat(parts, dim=1))
-        L = self.leaves_dev.shape[0]
-        for k, i in enumerate(todo):
-            self._rows[i] = host[k, :L]
-            self._paths[i] = [host[k, L + 4 * j:L + 4 * (j + 1)]
-                              for j in range(self.num_layers())]
+        self.store(todo, to_u64(self.gather(idx)))
 
     def get(self, i: int) -> np.ndarray:
         if i not in self._rows:

@@ -1,5 +1,6 @@
 """Wrappers for kernels K1 (leaf sponge), K2 (Merkle levels), K7 (the
-Poseidon gate's witness waves) and K8 (the FRI proof-of-work grind).
+Poseidon gate's witness waves), K8 (the FRI proof-of-work grind) and K9
+(the transcript's duplex sponge).
 
 K1 replaces plonky2_tpu/hash/poseidon_pallas.py:hash_leaves_cols_pallas and
 K2 replaces poseidon_pallas.py:compress_pairs_cols_pallas, in two forms: one
@@ -11,11 +12,15 @@ narrow top) and the designs.  Each wrapper takes the plain version beside it
 (hash/poseidon.py) for a CPU tensor only; a CUDA tensor launches the kernel
 or the call raises.  ``<wrapper>.launches`` counts kernel launches.
 
-K7 and K8 have no TPU kernel to replace: the JAX package computes a wave
-in XLA (plonky2_tpu/hash/poseidon_wires_jax.py:poseidon_wire_batch) and
-grinds in XLA inside its fused FRI (plonky2_tpu/fri/device_prover.py:
-_fused_fri_fn).  K7's plain version is hash/poseidon_wires.py:
-poseidon_wires_waves, K8's ``pow_grind`` below.
+K7, K8 and K9 have no TPU kernel to replace: the JAX package computes a
+wave in XLA (plonky2_tpu/hash/poseidon_wires_jax.py:poseidon_wire_batch),
+and grinds and runs its transcript's sponge in XLA inside its fused FRI
+(plonky2_tpu/fri/device_prover.py:_fused_fri_fn,
+plonky2_tpu/iop/challenger_jax.py:DeviceChallenger).  K7's plain version
+is hash/poseidon_wires.py:poseidon_wires_waves, K8's ``pow_grind`` and
+K9's ``sponge`` below.  K8 has two wrappers: ``pow_grind_sponge_cuda``
+grinds from K9's buffer and leaves the witness in it (the fused FRI), and
+``pow_grind_cuda`` from 12 words the host made (the layered FRI).
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 
 from .. import kernels
 from ..field import gf
+from ..field import gf2
 from . import poseidon as pos
 from . import poseidon_wires as pw
 
@@ -199,20 +205,38 @@ def pow_grind(base: torch.Tensor, word: int, bits: int, start: int = 0,
                        f"[{start}, {limit})")
 
 
+@functools.lru_cache(maxsize=None)
+def grind_scratch(device: torch.device) -> torch.Tensor:
+    """K8's scratch on `device`, made once (no upload): [0] the smallest
+    pass, which each launch leaves at 2^64 - 1; then the last launch's
+    record, [1] its entry and [2] its exit (ns of the card's clock), [3]
+    its rounds and [4] its answer."""
+    scratch = torch.zeros(5, dtype=torch.int64, device=device)
+    scratch[0:1].fill_(-1)
+    return scratch
+
+
+def _launch_grind(state, inputs, n_in: int, word: int, bits: int,
+                  start: int, limit: int, out, slot) -> None:
+    dev = state.device
+    kernels.call("plk_pow_grind", state.data_ptr(), inputs, n_in, word,
+                 bits, start, limit, grind_scratch(dev).data_ptr(),
+                 out.data_ptr(), slot, dev.index, kernels.stream_of(state))
+
+
 def pow_grind_cuda(base: torch.Tensor, word: int, bits: int, start: int = 0,
                    limit: int = POW_LIMIT) -> int:
-    """K8: ``pow_grind`` in one launch; only the 12 words go up and the
-    witness comes down."""
+    """K8 from a host-made state: ``pow_grind`` in one launch on the 12
+    words of `base`; the witness comes down (the layered FRI's form)."""
     _check_grind(base, word, bits, start, limit)
     if kernels.on_cpu(base):
         return pow_grind(base, word, bits, start, limit)
     kernels.check_kernel_operand(base, "base", base.device)
-    buf = torch.cat([base, torch.tensor([-1, 0], dtype=torch.int64,
-                                        device=base.device)])
-    kernels.call("plk_pow_grind", buf.data_ptr(), word, bits, start, limit,
-                 base.device.index, kernels.stream_of(base))
+    out = torch.full((1,), -1, dtype=torch.int64, device=base.device)
+    _launch_grind(base, base.data_ptr(), 0, word, bits, start, limit, out,
+                  None)
     pow_grind_cuda.launches += 1
-    witness = int(buf[pos.WIDTH]) & _NONE
+    witness = int(out[0]) & _NONE
     if witness == _NONE:
         raise RuntimeError(f"proof-of-work search found no witness in "
                            f"[{start}, {limit})")
@@ -220,3 +244,167 @@ def pow_grind_cuda(base: torch.Tensor, word: int, bits: int, start: int = 0,
 
 
 pow_grind_cuda.launches = 0
+
+
+def _check_sponge_buf(buf, n_in: int, limit: int) -> None:
+    kernels.check_field_tensor(buf, "buf", ndim=1)
+    if buf.shape[0] != SPONGE_WORDS:
+        raise ValueError(f"buf: expected {SPONGE_WORDS} words, got "
+                         f"{buf.shape[0]}")
+    if not 0 <= n_in <= limit:
+        raise ValueError(f"n_in {n_in} outside [0, {limit}]")
+
+
+def duplex_input(buf: torch.Tensor, n_in: int) -> torch.Tensor:
+    """The 12 words the sponge in `buf` permutes next: its n_in pending
+    inputs over its state's first words."""
+    return torch.cat([buf[pos.WIDTH:pos.WIDTH + n_in], buf[n_in:pos.WIDTH]])
+
+
+def pow_grind_sponge_cuda(buf: torch.Tensor, n_in: int, bits: int,
+                          start: int = 0,
+                          limit: int = POW_LIMIT) -> torch.Tensor:
+    """K8 on the transcript's sponge (K9's buffer, n_in < 8 inputs
+    pending): the smallest witness for its duplex input state, candidates
+    at word n_in, written into pending slot n_in and into the (1,) tensor
+    returned.  Nothing crosses to the host; 2^64 - 1 where no witness lies
+    in [start, limit)."""
+    _check_sponge_buf(buf, n_in, pos.SPONGE_RATE - 1)
+    _check_grind(buf[:pos.WIDTH], n_in, bits, start, limit)
+    if kernels.on_cpu(buf):
+        try:
+            w = pow_grind(duplex_input(buf, n_in), n_in, bits, start, limit)
+        except RuntimeError:
+            w = _NONE
+        buf[pos.WIDTH + n_in] = gf.as_i64(w)
+        return buf[pos.WIDTH + n_in:pos.WIDTH + n_in + 1].clone()
+    kernels.check_kernel_operand(buf, "buf", buf.device)
+    out = torch.empty(1, dtype=torch.int64, device=buf.device)
+    inputs = buf.data_ptr() + 8 * pos.WIDTH
+    _launch_grind(buf, inputs, n_in, n_in, bits, start, limit, out,
+                  inputs + 8 * n_in)
+    pow_grind_sponge_cuda.launches += 1
+    return out
+
+
+pow_grind_sponge_cuda.launches = 0
+
+# K9: the transcript sponge's buffer, the 12 state words and 8 pending
+# inputs (its outputs are the state's first words)
+SPONGE_WORDS = pos.WIDTH + pos.SPONGE_RATE
+
+
+def sponge_lengths(n_in: int, n_out: int, n_words: int,
+                   n_draws: int) -> tuple:
+    """(n_in, n_out, permutations) of a sponge with n_in inputs pending and
+    n_out outputs left after K9 absorbs n_words words and draws n_draws
+    (the host challenger's buffering, iop/challenger.py; n_in = 8 means a
+    kernel filled the last pending slot: duplex first)."""
+    rate = pos.SPONGE_RATE
+    perms = 0
+    if n_in == rate:
+        n_in, n_out, perms = 0, rate, 1
+    if n_words:
+        total = n_in + n_words
+        perms += total // rate
+        n_in = total % rate
+        n_out = rate if n_in == 0 else 0
+    for _ in range(n_draws):
+        if n_in or not n_out:
+            n_in, n_out, perms = 0, rate, perms + 1
+        n_out -= 1
+    return n_in, n_out, perms
+
+
+def _check_sponge(buf, n_in, n_out, src, n_draws, index_mask, arity):
+    _check_sponge_buf(buf, n_in, pos.SPONGE_RATE)
+    if src is not None:
+        kernels.check_field_tensor(src, "src", ndim=2)
+        if not 1 <= src.shape[0] <= 4 or (src.numel()
+                                           and src.stride(1) != 1):
+            raise ValueError(f"src: expected (rows, cols) with 1-4 rows "
+                             f"of consecutive words, got "
+                             f"{tuple(src.shape)} strides {src.stride()}")
+    if not (0 <= n_out <= pos.SPONGE_RATE and n_draws >= 0
+            and 0 <= index_mask < 1 << 63 and arity >= 0
+            and (arity == 0 or n_draws >= 2)):
+        raise ValueError(f"sponge: n_out {n_out}, n_draws {n_draws}, "
+                         f"index_mask {index_mask}, arity {arity}")
+
+
+def sponge(buf: torch.Tensor, n_in: int, n_out: int, src=None,
+           n_draws: int = 0, index_mask: int = 0, arity: int = 0):
+    """Plain version of K9, on poseidon_fast_t: the sponge in `buf` (state,
+    pending inputs; n_in pending, its first n_out state words its outputs)
+    absorbs the words of src (rows, cols) column by column, then draws
+    n_draws words; `buf` is updated in place.  Returns (draws (n_draws,),
+    draws & index_mask where index_mask else None, the powers beta^0 ..
+    beta^(arity - 1) of beta = (draws[0], draws[1]) as (2, arity) where
+    arity else None)."""
+    _check_sponge(buf, n_in, n_out, src, n_draws, index_mask, arity)
+    rate = pos.SPONGE_RATE
+    words = src.T.reshape(-1) if src is not None else buf[:0]
+    state = buf[:pos.WIDTH].clone()
+    pending = buf[pos.WIDTH:].clone()
+
+    def duplex(n):
+        s = torch.cat([pending[:n], state[n:]])
+        return pos.poseidon_fast_t(s[:, None])[:, 0], 0, rate
+
+    if n_in == rate:
+        state, n_in, n_out = duplex(n_in)
+    k = 0
+    while k < words.shape[0]:
+        take = min(rate - n_in, words.shape[0] - k)
+        pending[n_in:n_in + take] = words[k:k + take]
+        n_in, n_out, k = n_in + take, 0, k + take
+        if n_in == rate:
+            state, n_in, n_out = duplex(n_in)
+    draws = []
+    for _ in range(n_draws):
+        if n_in or not n_out:
+            state, n_in, n_out = duplex(n_in)
+        n_out -= 1
+        draws.append(state[n_out])
+    buf[:pos.WIDTH] = state
+    buf[pos.WIDTH:pos.WIDTH + n_in] = pending[:n_in]
+    draws = torch.stack(draws) if draws else buf[:0].clone()
+    powers = None
+    if arity:
+        beta = (draws[0], draws[1])
+        p = [(torch.ones_like(draws[0]), torch.zeros_like(draws[0]))]
+        for _ in range(1, arity):
+            p.append(gf2.mul2(p[-1], beta))
+        powers = torch.stack([torch.stack([c[0] for c in p]),
+                              torch.stack([c[1] for c in p])])
+    return draws, (draws & index_mask if index_mask else None), powers
+
+
+def sponge_cuda(buf: torch.Tensor, n_in: int, n_out: int, src=None,
+                n_draws: int = 0, index_mask: int = 0, arity: int = 0):
+    """K9: ``sponge`` in one launch; the results are written on the card
+    and nothing crosses to the host."""
+    _check_sponge(buf, n_in, n_out, src, n_draws, index_mask, arity)
+    if kernels.on_cpu(buf):
+        return sponge(buf, n_in, n_out, src, n_draws, index_mask, arity)
+    dev = buf.device
+    kernels.check_kernel_operand(buf, "buf", dev)
+    if src is not None and src.device != dev:
+        raise ValueError(f"src: on {src.device}, expected {dev}")
+    out = torch.empty(n_draws * (2 if index_mask else 1) + 2 * arity,
+                      dtype=torch.int64, device=dev)
+    draws = out[:n_draws]
+    idx = out[n_draws:2 * n_draws] if index_mask else None
+    powers = out[out.shape[0] - 2 * arity:].view(2, arity) if arity else None
+    rows, cols = (src.shape if src is not None else (1, 0))
+    kernels.call("plk_sponge", buf.data_ptr(),
+                 kernels.ptr(src) if cols else None, rows,
+                 src.stride(0) if cols else 0, cols, n_in, n_out,
+                 draws.data_ptr(), n_draws, kernels.ptr(idx), index_mask,
+                 kernels.ptr(powers), arity, dev.index,
+                 kernels.stream_of(buf))
+    sponge_cuda.launches += 1
+    return draws, idx, powers
+
+
+sponge_cuda.launches = 0

@@ -72,8 +72,15 @@ SIGNATURES = {
                                  ("n_waves", _I), ("R", _LL),
                                  ("max_rows", _LL), ("err", _P),
                                  ("device", _I), ("stream", _P)),
-    "plk_pow_grind": (("buf", _P), ("pos", _I), ("bits", _I), ("start", _LL),
-                      ("limit", _LL), ("device", _I), ("stream", _P)),
+    "plk_pow_grind": (("state", _P), ("inputs", _P), ("n_in", _I),
+                      ("pos", _I), ("bits", _I), ("start", _LL),
+                      ("limit", _LL), ("scratch", _P), ("out", _P),
+                      ("slot", _P), ("device", _I), ("stream", _P)),
+    "plk_sponge": (("buf", _P), ("src", _P), ("rows", _I), ("stride", _LL),
+                   ("cols", _LL), ("n_in", _I), ("n_out", _I), ("dst", _P),
+                   ("n_draws", _I), ("idx", _P), ("index_mask", _LL),
+                   ("powers", _P), ("arity", _I), ("device", _I),
+                   ("stream", _P)),
 }
 
 

@@ -136,16 +136,49 @@ def test_wrappers_launch_with_declared_signatures(monkeypatch):
         "values": values.data_ptr(), "dep_idx": dep.data_ptr(),
         "out_idx": out.data_ptr(), "offsets": offsets.data_ptr(),
         "n_waves": 3, "R": 7, "max_rows": 4, "err": err.data_ptr()}
-    # K8 grinds from the 12 words with the answer and the ticket behind
-    # them; the recorder writes no answer, so the wrapper finds none
+    # K8 grinds from the 12 words (no inputs pending) into an answer that
+    # starts at 2^64 - 1; the recorder writes no answer, so the wrapper
+    # finds none
+    base = z((12,), dtype=i64)
     before = pc.pow_grind_cuda.launches
     with pytest.raises(RuntimeError, match="no witness"):
-        pc.pow_grind_cuda(z((12,), dtype=i64), 5, 16, 3, 1 << 20)
+        pc.pow_grind_cuda(base, 5, 16, 3, 1 << 20)
     assert pc.pow_grind_cuda.launches == before + 1
     named = kernels.named_args(*calls[-1])
-    assert {k: named[k] for k in ("pos", "bits", "start", "limit")} == {
-        "pos": 5, "bits": 16, "start": 3, "limit": 1 << 20}
+    assert {k: named[k] for k in ("state", "n_in", "pos", "bits", "start",
+                                  "limit", "slot")} == {
+        "state": base.data_ptr(), "n_in": 0, "pos": 5, "bits": 16,
+        "start": 3, "limit": 1 << 20, "slot": None}
+    # K9 reads a cap (4, 16) digest by digest and writes two draws and
+    # beta's 16 powers behind them
+    buf = z((pc.SPONGE_WORDS,), dtype=i64)
+    cap = z((4, 16), dtype=i64)
+    before = pc.sponge_cuda.launches
+    draws, idx, powers = pc.sponge_cuda(buf, 3, 0, cap, 2, 0, 16)
+    assert pc.sponge_cuda.launches == before + 1
+    assert tuple(draws.shape) == (2,) and idx is None
+    assert tuple(powers.shape) == (2, 16)
+    named = kernels.named_args(*calls[-1])
+    assert {k: named[k] for k in ("buf", "src", "rows", "stride", "cols",
+                                  "n_in", "n_out", "dst", "n_draws", "idx",
+                                  "index_mask", "powers", "arity")} == {
+        "buf": buf.data_ptr(), "src": cap.data_ptr(), "rows": 4,
+        "stride": 16, "cols": 16, "n_in": 3, "n_out": 0,
+        "dst": draws.data_ptr(), "n_draws": 2, "idx": None,
+        "index_mask": 0, "powers": powers.data_ptr(), "arity": 16}
     assert [c[0] for c in calls] == list(kernels.SIGNATURES)
+    # K8 on K9's buffer: the state, the pending inputs behind it, the
+    # candidate and the answer at pending slot n_in
+    before = pc.pow_grind_sponge_cuda.launches
+    out = pc.pow_grind_sponge_cuda(buf, 6, 16)
+    assert pc.pow_grind_sponge_cuda.launches == before + 1
+    assert tuple(out.shape) == (1,)
+    named = kernels.named_args(*calls[-1])
+    assert {k: named[k] for k in ("state", "inputs", "n_in", "pos", "out",
+                                  "slot")} == {
+        "state": buf.data_ptr(), "inputs": buf.data_ptr() + 8 * 12,
+        "n_in": 6, "pos": 6, "out": out.data_ptr(),
+        "slot": buf.data_ptr() + 8 * 18}
     # the zero-tail forms get their factor table, K5 without a tail none
     assert kernels.named_args(*calls[4])["factors"] is not None
     assert kernels.named_args(*calls[5])["factors"] is not None

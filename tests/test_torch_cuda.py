@@ -329,13 +329,12 @@ def test_fold_values_in_leaf_order_on_card(dev, log_n):
     _equal(got, tntt.lde_coset_ntt_bitrev(coeffs.cpu(), 0, shift))
 
 
-def test_prove_on_card_matches_cpu(dev):
-    """The whole proof (phases 2-8) at the flagship widths and program and
-    a small degree: the card's proof equals the CPU's, number for number."""
+def _small_prover_data():
+    """ProverData at the flagship widths and program and 2^8 rows (FRI of
+    two arity-16 layers), and a random witness."""
     import dataclasses
 
     from plonky2_tpu_torch.fri.config import FriConfig, FriReductionStrategy
-    from plonky2_tpu_torch.plonk.prover import prove
     from plonky2_tpu_torch.plonk.prover_data import ProverData
     prog, shape = cp.load(FLAGSHIP_NPZ)
     shape = dataclasses.replace(shape, degree_bits=8, cap_height=2)
@@ -353,7 +352,14 @@ def test_prove_on_card_matches_cpu(dev):
         cs_coeffs=draw(shape.num_preprocessed_polys),
         sigmas=draw(shape.num_routed_wires), circuit_digest=(1, 2, 3, 4),
         public_input_wires=((0, 0), (5, 9)))
-    witness = draw(shape.num_wires)
+    return data, draw(shape.num_wires)
+
+
+def test_prove_on_card_matches_cpu(dev):
+    """The whole proof (phases 2-8) at the flagship widths and program and
+    a small degree: the card's proof equals the CPU's, number for number."""
+    from plonky2_tpu_torch.plonk.prover import prove
+    data, witness = _small_prover_data()
     card = prove(data, witness, device=dev)
     cpu = prove(data, witness, device="cpu")
     a, b = card.proof.opening_proof, cpu.proof.opening_proof
@@ -418,10 +424,10 @@ def test_session_on_card_matches_cpu(dev):
             CircuitConfig.wide_ecc_config(), 5, device=where)
         sess = ProverSession(data, device=where)
         before = (pc.poseidon_wires_waves_cuda.launches,
-                  pc.pow_grind_cuda.launches)
+                  pc.pow_grind_sponge_cuda.launches)
         proof = sess.prove(pw, rng=random.Random(11))
         after = (pc.poseidon_wires_waves_cuda.launches,
-                 pc.pow_grind_cuda.launches)
+                 pc.pow_grind_sponge_cuda.launches)
         assert after == ((before[0] + 1, before[1] + 1) if where == dev
                          else before)
         assert proof.public_inputs == root
@@ -482,6 +488,82 @@ def test_pow_grind_kernel(dev, bits):
             assert pc.pow_grind_cuda.launches == before + 1
             assert got == pc.pow_grind(base, word, bits, start,
                                        batch=1 << 16)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_sponge_kernel(dev, seed):
+    """K9 against its plain version on random transcripts from random
+    buffers: every pending count, words that end on and off the rate
+    boundary, caps, extension coefficients in a wider row, draws that
+    refill the outputs, query indices and beta's powers; the buffer after
+    each launch equal too."""
+    rng = np.random.default_rng(seed)
+    sources = [None, _rand((1, 1), seed, dev), _rand((1, 8 - seed), seed, dev),
+               _rand((4, 16), seed, dev), _rand((2, 37), seed, dev)[:, :4],
+               _rand((1, 67), seed, dev)]
+    for n_in in range(9):
+        for src in sources:
+            n_out = 0 if src is not None else int(rng.integers(0, 9))
+            buf = _rand((pc.SPONGE_WORDS,), 100 * seed + n_in, dev)
+            plain_buf = buf.clone()
+            n_draws = int(rng.integers(0, 30))
+            arity = 1 << int(rng.integers(0, 9)) if n_draws >= 2 else 0
+            mask = (1 << int(rng.integers(1, 22))) - 1
+            before = pc.sponge_cuda.launches
+            got = pc.sponge_cuda(buf, n_in, n_out, src, n_draws, mask, arity)
+            assert pc.sponge_cuda.launches == before + 1
+            want = pc.sponge(plain_buf, n_in, n_out, src, n_draws, mask,
+                             arity)
+            for a, b in zip(got, want):
+                if b is not None:
+                    _equal(a, b)
+            _equal(buf, plain_buf)
+
+
+@pytest.mark.parametrize("bits", [0, 1, 2, 4, 8, 12, 16, 20])
+def test_pow_grind_kernel_on_the_sponge(dev, bits):
+    """K8 from the sponge's buffer finds its plain version's witness for
+    the duplex input state at every pending count, writes it into the
+    pending slot and leaves the rest of the buffer as it was."""
+    rng = np.random.default_rng(100 + bits)
+    for n_in in (0, 3, 7) if bits > 12 else range(8):
+        buf = from_u64(rng.integers(0, P, size=pc.SPONGE_WORDS,
+                                    dtype=np.uint64), dev)
+        want = pc.pow_grind(pc.duplex_input(buf, n_in), n_in, bits,
+                            batch=1 << 16)
+        plain_buf = buf.clone()
+        plain_buf[12 + n_in] = want
+        before = pc.pow_grind_sponge_cuda.launches
+        out = pc.pow_grind_sponge_cuda(buf, n_in, bits)
+        assert pc.pow_grind_sponge_cuda.launches == before + 1
+        assert int(out[0]) == want
+        _equal(buf, plain_buf)
+
+
+def test_fused_fri_on_card_matches_layered(dev, monkeypatch):
+    """The proof with the fused FRI (the transcript on the card: one K9
+    launch a layer, one for the final polynomial, K8 on the sponge, one
+    K9 launch for its witness, response and indices) equals the proof
+    with the layered FRI (the host's transcript), byte for byte."""
+    from plonky2_tpu_torch.fri import device_prover as tdp
+    from plonky2_tpu_torch.plonk.prover import prove
+    from plonky2_tpu_torch.utils.serialization import serialize_proof
+    data, witness = _small_prover_data()
+    blobs = {}
+    for path in ("fused", "layered"):
+        before = (pc.sponge_cuda.launches, pc.pow_grind_sponge_cuda.launches,
+                  pc.pow_grind_cuda.launches)
+        with monkeypatch.context() as m:
+            if path == "layered":
+                m.setattr(tdp, "device_fri_proof",
+                          tdp._device_fri_proof_layered)
+            blobs[path] = serialize_proof(prove(data, witness, device=dev))
+        after = (pc.sponge_cuda.launches, pc.pow_grind_sponge_cuda.launches,
+                 pc.pow_grind_cuda.launches)
+        layers = len(data.fri_params.reduction_arity_bits)
+        assert [a - b for a, b in zip(after, before)] == (
+            [layers + 2, 1, 0] if path == "fused" else [0, 0, 1])
+    assert blobs["fused"] == blobs["layered"]
 
 
 def test_device_witness_plan_on_card_matches_host(dev):

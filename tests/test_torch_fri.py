@@ -20,6 +20,10 @@ transcript starts from the same observations.  Held equal, bit for bit:
   ``__graft_entry__.py:_fast_config`` (one layer);
 - a wrong claimed value leaves the final polynomial's tail nonzero, which
   the prover refuses.
+
+The whole proof and the wrong claim go through both FRI paths: the fused
+one, whose transcript runs on the device (iop/challenger_torch.py, K9's
+plain version here) and the host replays it, and the layered one.
 """
 import functools
 
@@ -190,11 +194,23 @@ def test_fold_layers_match_jax(config, logn, layers):
     assert ours.get_n_challenges(3) == ref.get_n_challenges(3)
 
 
+def take_path(monkeypatch, path: str) -> None:
+    """Make device_prove_openings take the fused or the layered FRI."""
+    if path == "layered":
+        monkeypatch.setattr(tdp, "device_fri_proof",
+                            tdp._device_fri_proof_layered)
+    else:
+        monkeypatch.setattr(tdp, "_device_fri_proof_layered",
+                            lambda *a, **k: pytest.fail("layered path ran"))
+
+
+@pytest.mark.parametrize("path", ["fused", "layered"])
 @pytest.mark.parametrize("config,logn", [(FLAGSHIP_ARITY, 10),
                                          (GRAFT_ARITY, 10)])
-def test_fri_proof_matches_jax(config, logn):
+def test_fri_proof_matches_jax(config, logn, path, monkeypatch):
     jo, to, jinst, tinst, jopen, topen = case(logn, config.cap_height)
     params = config.fri_params(logn, False)
+    take_path(monkeypatch, path)
     ours, ref = challengers()
     proof = tdp.device_prove_openings(tinst, to, topen, ours,
                                       fri_params_from(params))
@@ -215,8 +231,10 @@ def test_fri_proof_matches_jax(config, logn):
                                               path)
 
 
-def test_wrong_claimed_value_leaves_a_nonzero_tail():
+@pytest.mark.parametrize("path", ["fused", "layered"])
+def test_wrong_claimed_value_leaves_a_nonzero_tail(path, monkeypatch):
     logn = 8
+    take_path(monkeypatch, path)
     jo, to, jinst, tinst, jopen, topen = case(logn, 2)
     bad = ts.FriOpenings([ts.FriOpeningBatch(list(b.values))
                           for b in topen.batches])
