@@ -28,18 +28,31 @@ whole proof after the witness:
   its constants-sigmas commitment on the card), its circuit digest, cap
   and root held equal to the JAX package's pinned circuit
   (plonk/programs/hash_tree_wide_ecc_k17.json), then
-  ProverSession.prove (cold and warm), whose witness the device witness
+  ProverSession (its quotient program compiled by the session and held
+  equal to plonk/programs/hash_tree_wide_ecc.npz) and ProverSession.prove
+  (cold and warm), whose witness the device witness
   plan generates on the card (iop/device_witness.py; kernel K7 runs its
   18 Poseidon waves in one launch), the plan's witness held equal to the
   host engine's,
   every proof equal to the pinned flagship proof (sha256), and the port's
   verifier on every proof and on a corrupted copy; the FRI's transcript
-  and proof-of-work grind of every proof run on the card (K9, K8).
+  and proof-of-work grind of every proof run on the card (K9, K8);
+* the same tree under standard_recursion_config (phase 9c: 135 wires,
+  2^18 rows, its program compiled, the device witness), proved cold and
+  warm and verified, every proof the pinned STANDARD_PROOF_SHA256, which
+  the JAX package's verifier accepts;
+* the gate mix (phase 9d, models/gate_mix.py: every gate of plonky2's
+  recursion set, 2^12 rows, standard_recursion_config), whose witness the
+  host engine generates (the device plan refuses it), proved and
+  verified, every proof the pinned GATE_MIX_PROOF_SHA256 of the port's
+  CPU proof.
 
 The script builds the kernels from csrc/ with nvcc (one process per
 source, in parallel), holds each kernel, in each of its forms (K3 and K5
-down the columns and along the rows), against its plain PyTorch version on
-the card (exact equality: integer arithmetic, tolerance 0), runs each path
+down the columns and along the rows; K6 on the flagship's program, the
+gate mix's and one of more slots than shared memory holds), against its
+plain PyTorch version on the card (exact equality: integer arithmetic,
+tolerance 0), runs each path
 at full width with its launch counts set to 0 just before and read just
 after, holds the full-width results against the plain versions on subsets,
 verifies the openings and every FRI query path, and prints one JSON line
@@ -107,12 +120,30 @@ REDUCED_LOG_N = 10              # the card-vs-CPU proof
 FLAGSHIP_PROOF_SHA256 = ("d3654cf0751d606f8cd0f5143e6d2ab447cbeee73c07aa59768"
                          "08c9728ec749d")
 SESSION_LOG2_LEAVES = 17
+# the same tree under standard_recursion_config (phase 9c), proved from
+# random.Random(0); the JAX package's verifier accepts this proof against
+# the port's constants-sigmas cap (scripts/jax_verify_flagship_proof.py
+# --config standard).  The JAX package's build of this tree is pinned at
+# 2^10 leaves only (STANDARD_REF), which phase 9c holds the port's build
+# of that size on the card against.
+STANDARD_PROOF_SHA256 = ("532aeedc23471aed748b033eeffd86758c8bd83c495db1f4c"
+                         "350163d1d1d6de8")
+# the gate mix (phase 9d): 290 copies fill 2^12 rows; its proof from
+# random.Random(0), as the port proves it on the CPU
+GATE_MIX_COPIES = 290
+GATE_MIX_LOG_N = 12
+GATE_MIX_PROOF_SHA256 = ("1f94b80e3c312d204db6d8818a62b17e0046440661a748d670c"
+                         "3d854683ca01d")
 FLAGSHIP_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "plonky2_tpu_torch", "plonk", "programs",
                             "hash_tree_wide_ecc_k17.json")
+STANDARD_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "plonky2_tpu_torch", "plonk", "programs",
+                            "hash_tree_standard_k10.json")
 CHECK_POINTS = 8
 CHUNK_SWEEP = [1 << k for k in range(15, 22)]
 CHECK_LANES = 4096
+K6_TIMING_LANES = 1 << 16       # K6's three programs timed at this width
 # K2's narrow top of a 2^21-leaf tree with cap 4: the 11 levels of 2^14
 # down to 16 parents (phase 3b)
 NARROW_LEVELS = 11
@@ -212,6 +243,10 @@ PROVE_PATH = tuple(e for e in QUOTIENT_PATH
                    if e != "plk_ntt_cols_zero_tail") + FRI_PATH
 # the session's proof generates its witness too (K7)
 SESSION_PATH = PROVE_PATH + ("plk_poseidon_wires_waves",)
+# the gate mix's proof (2^12 rows): its witness from the host engine, and
+# every Merkle level at most 2^14 parents wide, so each tree is one narrow
+# top (K2's tail form) with no wide level
+GATE_MIX_PATH = tuple(e for e in PROVE_PATH if e != "plk_compress_level")
 # the flagship witness plan's Poseidon waves, 2^16 rows down to 1, then the
 # public inputs' hash (phase 3c)
 FLAGSHIP_WAVES = tuple(1 << k for k in range(16, -1, -1)) + (1,)
@@ -382,12 +417,11 @@ def launch_cost(name: str, args, pow_witness=None) -> tuple:
         # the linear form's 64x64 products on every lane; the input rows it
         # reads read once and its outputs written once, plus its op stream,
         # index arrays and scalar bank
-        from plonky2_tpu_torch.plonk.constraint_program import (MUL_OPS,
-                                                                  linearize)
-        prog, _ = flagship_program()
-        lin = linearize(prog)
+        from plonky2_tpu_torch.plonk.constraint_program import MUL_OPS
+        check(a["ops"] in K6_PROGRAMS, "K6 ran a program no phase noted")
+        lin = K6_PROGRAMS[a["ops"]]            # the program that ran
         check((a["n_ops"], a["n_slots"]) == (lin.n_ops, lin.n_slots),
-              "K6 ran another program")
+              "K6's launch and its linear form disagree")
         C, n_out = a["C"], a["n_out"]
         n_mul = int(np.isin(lin.fields()["opcode"], MUL_OPS).sum())
         nbytes = (8 * (lin.n_read + n_out) * C + 8 * lin.n_ops
@@ -421,6 +455,27 @@ def launch_cost(name: str, args, pow_witness=None) -> tuple:
 def tail_parents(m0: int, n_levels: int) -> int:
     """The nodes (permutations) of K2's narrow top from m0 parents."""
     return sum(m0 >> k for k in range(n_levels))
+
+
+# the linear form of each program that a counted path runs on K6, by the
+# device address of its op stream (the `ops` argument of K6's launches)
+K6_PROGRAMS = {}
+
+
+def note_program(prog, dev) -> None:
+    """Note `prog`'s linear form for launch_cost, before a path runs it
+    on `dev` (the wrapper keeps a program's op stream on the device, so
+    its launches pass this address)."""
+    import torch
+    from plonky2_tpu_torch.plonk.constraint_program import linearize
+    from plonky2_tpu_torch.plonk.constraint_program_cuda import \
+        device_program
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        # the wrapper keys its cache by the inputs' device, which has one
+        dev = torch.device("cuda", torch.cuda.current_device())
+    K6_PROGRAMS[device_program(prog, str(dev))[0].data_ptr()] = \
+        linearize(prog)
 
 
 @functools.lru_cache(maxsize=1)
@@ -486,8 +541,9 @@ def phase_kernels(dev) -> dict:
                      plain_shape=what)
 
     # the commitments' widths, the FRI layers' 2 x 16, and boundary values
-    for L, make in ((234, rand_field), (2481, rand_field), (32, rand_field),
-                    (234, boundary_field), (9, boundary_field)):
+    for L, make in ((234, rand_field), (135, rand_field), (2481, rand_field),
+                    (32, rand_field), (234, boundary_field),
+                    (135, boundary_field), (9, boundary_field)):
         leaves = make(rng, (L, 1 << 14), dev)
         kind = " boundary" if make is boundary_field else ""
         compare("plk_hash_leaves", f"L={L} N=2^14{kind}",
@@ -607,6 +663,7 @@ def phase_kernels(dev) -> dict:
                 lambda: cpc.run_program_cuda(prog, inputs, bank),
                 lambda: prog.run_plain(inputs, bank),
                 timed=label == "random")
+    res["k6_programs"] = k6_programs(dev, rng, compare)
     for W in (8, 16, 32):
         small = cp.random_program(rng, wave_width=W, n_regs=3 * W)
         check(cp.in_wave_reuse(small), "random program reuses no register")
@@ -718,6 +775,66 @@ def phase_kernels(dev) -> dict:
         compare("plk_sponge", what, lambda: run(pc.sponge_cuda),
                 lambda: run(pc.sponge), timed=what.startswith("FRI layer"))
     return res
+
+
+def gate_mix_program():
+    """The gate mix's quotient program (models/gate_mix.py; the program
+    depends on the gates and the config, not on the copies)."""
+    from plonky2_tpu_torch.models.gate_mix import build_gate_mix_circuit
+    from plonky2_tpu_torch.plonk.quotient_program import \
+        build_quotient_program
+    data, _, _ = build_gate_mix_circuit(copies=1, device="cpu")
+    return build_quotient_program(data.common)
+
+
+def k6_programs(dev, rng, compare) -> dict:
+    """K6 on three programs, each held against run_plain (exact) and
+    timed at K6_TIMING_LANES lanes (CUDA events, the median of 3 launches
+    after a warm-up): the flagship's, the gate mix's and a program of
+    more slots than shared memory holds at 32 lanes a block
+    (constraint_program.py:wide_program).  Per program its form (lanes a
+    block, slots in shared memory and spilled), ms a launch and ns a
+    lane."""
+    from plonky2_tpu_torch.field.convert import from_u64
+    from plonky2_tpu_torch.field.goldilocks import P
+    from plonky2_tpu_torch.plonk import constraint_program as cp
+    from plonky2_tpu_torch.plonk import constraint_program_cuda as cpc
+    progs = {"flagship": flagship_program()[0],
+             "gate mix": gate_mix_program(),
+             "wide": cp.wide_program()}
+    out = {}
+    for name, prog in progs.items():
+        lin = cp.linearize(prog)
+        form = cpc.k6_form(lin.n_slots, max(1, len(prog.bank_sids)))
+        bank = from_u64(prog.scalar_bank([int(x) for x in rng.integers(
+            0, P, size=prog.n_scalar_inputs, dtype=np.uint64)]), dev)
+        what = (f"{name} program ({lin.n_ops} ops, {lin.n_slots} slots: "
+                f"{form.lanes} lanes a block, {form.n_shared} in shared "
+                f"memory, {form.n_spilled} spilled)")
+        if name != "flagship":          # the flagship's is checked above
+            for label, make in (("random", rand_field),
+                                ("boundary", boundary_field)):
+                inputs = make(rng, (prog.n_inputs, CHECK_LANES + 37), dev)
+                compare("plk_constraint_program",
+                        f"{what}, {CHECK_LANES + 37} lanes, {label} inputs",
+                        lambda: cpc.run_program_cuda(prog, inputs, bank),
+                        lambda: prog.run_plain(inputs, bank))
+        rows = rand_field(rng, (lin.n_read, K6_TIMING_LANES), dev)
+        cpc.run_program_cuda(prog, rows, bank)
+        ms = sorted(cuda_ms(lambda: cpc.run_program_cuda(prog, rows, bank),
+                            warmup=False)[0] for _ in range(3))[1]
+        out[name] = {"n_ops": lin.n_ops, "n_slots": lin.n_slots,
+                     "bank": len(prog.bank_sids), "lanes": form.lanes,
+                     "n_shared": form.n_shared, "n_spilled": form.n_spilled,
+                     "blocks_per_sm": form.blocks_per_sm(),
+                     "lanes_timed": K6_TIMING_LANES, "ms": ms,
+                     "ns_per_lane": ms * 1e6 / K6_TIMING_LANES}
+        log(f"  K6 form and time: {what}: {ms:.3f} ms for "
+            f"{K6_TIMING_LANES} lanes, {out[name]['ns_per_lane']:.2f} ns "
+            "a lane")
+    check(out["wide"]["n_slots"] >= 1200 and out["wide"]["n_spilled"] > 0,
+          "the wide program does not spill K6's shared memory")
+    return out
 
 
 def grind_record(dev) -> dict:
@@ -1212,6 +1329,7 @@ def phase_quotient(dev, rng, full):
     from plonky2_tpu_torch.plonk.prover import (quotient_round,
                                                 start_transcript)
     prog, shape = flagship_program()
+    note_program(prog, dev)
     check((shape.num_wires, shape.degree_bits, shape.rate_bits,
            shape.cap_height, shape.zero_knowledge)
           == (NUM_POLYS, LOG_N, RATE_BITS, CAP_HEIGHT, False),
@@ -1880,6 +1998,7 @@ def phase_prove(dev, full, quot, opening):
     import torch
     from plonky2_tpu_torch.plonk.prover import ProverContext, prove
     data, values = quot["data"], full["values"]
+    note_program(data.program, dev)
     t = time.perf_counter()
     ctx = ProverContext(data, dev)
     torch.cuda.synchronize()
@@ -2020,12 +2139,18 @@ def phase_session(dev) -> dict:
     log(f"  generators per class: {dict(classes)}")
 
     t = time.perf_counter()
-    sess = ProverSession(data)
+    session_timer = StageTimer()
+    sess = ProverSession(data, timing=session_timer)
     torch.cuda.synchronize()
     session_s = time.perf_counter() - t
     check(sess.context.cs_batch is po.constants_sigmas_commitment,
           "the session committed the constants-sigmas again")
-    log(f"  ProverSession: {session_s:.3f} s (the shipped program, build()'s "
+    compile_ms = session_timer.ms["quotient program"]
+    check_flagship_program(sess.prover_data.program)
+    note_program(sess.prover_data.program, dev)
+    log(f"  ProverSession: {session_s:.3f} s (stage quotient program "
+        f"{compile_ms:.3f} ms: the compiled program equals "
+        "plonk/programs/hash_tree_wide_ecc.npz array for array; build()'s "
         "constants-sigmas commitment)")
 
     def run(timer):
@@ -2129,8 +2254,196 @@ def phase_session(dev) -> dict:
                "runs": runs, "session_s": session_s, "profile": profile,
                "generators": dict(classes), "host_rss_gib": host_rss_gib(),
                "plan_check": plan_check, "k7_waves": k7_waves,
-               "k8_record": k8_record}
+               "k8_record": k8_record, "compile_ms": compile_ms}
     return {"build": build, "session": session}
+
+
+def check_flagship_program(prog) -> None:
+    """A compiled program equals the shipped flagship program (the JAX
+    compiler's output), array for array."""
+    shipped, _ = flagship_program()
+    got = prog.arrays()
+    for k, v in shipped.arrays().items():
+        check(np.array_equal(np.asarray(got[k]), np.asarray(v)),
+              f"the compiled flagship program differs in {k}")
+
+
+def prove_session(sess, pw, path, label, want_sha, device_witness,
+                  want_pis=None) -> dict:
+    """ProverSession.prove of `pw`: one cold run (launch counts set to 0
+    just before and read just after; every kernel of `path` launched) and
+    WARM_RUNS warm runs (timed per kernel), each from random.Random(0) and
+    each verified with the port's verifier; every proof's sha256 must be
+    `want_sha`.  The witness comes from the device plan (stage "device
+    witness", K7) when `device_witness`, else from the host engine (stage
+    "witness").  Returns the path's numbers, the traced idle share of one
+    more warm run included."""
+    import hashlib
+    import random
+    import torch
+    from plonky2_tpu_torch.utils.serialization import serialize_proof
+    note_program(sess.prover_data.program, sess.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    runs, recs = [], None
+    for i in range(1 + WARM_RUNS):
+        timer = StageTimer()
+        with contextlib.ExitStack() as stack:
+            rec = stack.enter_context(KernelRecorder()) if i else None
+            t = time.perf_counter()
+            proof = sess.prove(pw, rng=random.Random(0), timing=timer)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        if not i:
+            launches = read_launch_counts()
+            for entry in path:
+                check(launches[entry] > 0,
+                      f"{entry} was not launched on the {label}")
+        else:
+            recs = rec.records
+        want, other = (("device witness", "witness") if device_witness
+                       else ("witness", "device witness"))
+        check(want in timer.ms and other not in timer.ms,
+              f"the {label}'s witness did not come from the {want} stage")
+        if want_pis is not None:
+            check(proof.public_inputs == want_pis, "public inputs differ")
+        t = time.perf_counter()
+        sess.verify(proof)
+        verify_s = time.perf_counter() - t
+        blob = serialize_proof(proof)
+        runs.append({"wall_s": wall, "verify_s": verify_s,
+                     "stages_ms": timer.ms, "bytes": len(blob),
+                     "sha256": hashlib.sha256(blob).hexdigest(),
+                     "kernel_ms": rec.ms_by_kernel() if rec else None})
+        wit = sum(timer.ms.get(k, 0.0) for k in (
+            "witness plan", "device witness", "witness")) / 1e3
+        log(f"  {label} prove {'cold' if not i else 'warm'}: {wall:.4f} s "
+            f"(witness {wit:.4f} s); verify {verify_s:.3f} s; proof "
+            f"{len(blob)} bytes, sha256 {runs[-1]['sha256']}")
+    peak = torch.cuda.max_memory_allocated()
+    log_stages(timer, runs[-1]["wall_s"])
+    log(f"  {label}: peak max_memory_allocated {peak / 2**30:.3f} GiB")
+    profile = profile_run(lambda: sess.prove(pw, rng=random.Random(0)))
+    shas = {r["sha256"] for r in runs}
+    check(shas == {want_sha}, f"the {label}'s proofs ({shas}) are not the "
+          f"pinned {want_sha}")
+    log(f"  every {label} proof's sha256 is the pinned {want_sha}")
+    warm = runs[1:]
+    kernel_ms = {k: float(np.median([r["kernel_ms"].get(k, 0.0)
+                                     for r in warm]))
+                 for k in warm[-1]["kernel_ms"]}
+    for r in runs:
+        del r["kernel_ms"]
+    return {"cold_s": runs[0]["wall_s"], "warm_s": [r["wall_s"] for r in warm],
+            "launches": launches, "kernel_ms": kernel_ms,
+            "cost": path_cost(recs, pow_witness_of(proof)),
+            "peak_bytes": peak, "runs": runs, "profile": profile}
+
+
+def k6_form_of(sess) -> dict:
+    from plonky2_tpu_torch.plonk import constraint_program as cp
+    from plonky2_tpu_torch.plonk.constraint_program_cuda import k6_form
+    prog = sess.prover_data.program
+    lin = cp.linearize(prog)
+    form = k6_form(lin.n_slots, max(1, len(prog.bank_sids)))
+    return {"ops": lin.n_ops, "slots": lin.n_slots,
+            "bank": len(prog.bank_sids), "lanes": form.lanes,
+            "n_shared": form.n_shared, "n_spilled": form.n_spilled}
+
+
+def phase_standard(dev) -> dict:
+    """The flagship's tree (2^SESSION_LOG2_LEAVES leaves, numpy seed 0)
+    under CircuitConfig.standard_recursion_config() (135 wires, 2^18
+    rows): built by the port on the card, its quotient program compiled by
+    the session, its witness from the device plan (K7), proved cold and
+    warm and verified; every proof the pinned STANDARD_PROOF_SHA256 (the
+    proof scripts/jax_verify_flagship_proof.py --config standard accepts
+    with the JAX package's verifier against the port's cap).  First the
+    port builds the same tree at 2^10 leaves on the card, and its circuit
+    digest, cap and root must equal the JAX package's (STANDARD_REF)."""
+    import torch
+    from plonky2_tpu_torch.models.hash_tree import build_hash_tree_circuit
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    from plonky2_tpu_torch.runtime.session import ProverSession
+    with open(STANDARD_REF) as f:
+        ref = json.load(f)
+    t = time.perf_counter()
+    small, _, root = build_hash_tree_circuit(
+        CircuitConfig.standard_recursion_config(), ref["log2_leaves"],
+        seed=SEED)
+    ints = lambda a: [int(x) for x in np.asarray(a).reshape(-1)]  # noqa: E731
+    check(small.common.degree_bits() == ref["degree_bits"]
+          and ints(small.prover_only.circuit_digest) == ref["circuit_digest"]
+          and [ints(d) for d in small.verifier_only.constants_sigmas_cap
+               .digests] == ref["constants_sigmas_cap"]
+          and root == ref["root"], "the port's standard tree at "
+          f"2^{ref['log2_leaves']} leaves differs from the JAX package's")
+    log(f"  the tree at 2^{ref['log2_leaves']} leaves, built on the card in "
+        f"{time.perf_counter() - t:.3f} s: circuit digest, cap and root "
+        "equal the JAX package's build (plonk/programs/"
+        "hash_tree_standard_k10.json)")
+    del small
+    reset_launch_counts()
+    build_timer = StageTimer()
+    t = time.perf_counter()
+    data, pw, root = build_hash_tree_circuit(
+        CircuitConfig.standard_recursion_config(), SESSION_LOG2_LEAVES,
+        seed=SEED, timing=build_timer)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    check(data.common.degree_bits() == LOG_N
+          and data.common.config.num_wires == 135, "standard tree shape")
+    log(f"  build: {build_s:.3f} s, {data.common.degree()} rows, "
+        f"{data.common.config.num_wires} wires; launches "
+        f"{read_launch_counts()}")
+    log_stages(build_timer, build_s)
+    timer = StageTimer()
+    sess = ProverSession(data, timing=timer)
+    form = k6_form_of(sess)
+    log(f"  quotient program compiled in {timer.ms['quotient program']:.3f}"
+        f" ms: {form}")
+    res = prove_session(sess, pw, SESSION_PATH, "standard tree",
+                        STANDARD_PROOF_SHA256, True, root)
+    res.update(build_s=build_s, build_stages_ms=build_timer.ms,
+               compile_ms=timer.ms["quotient program"], k6_form=form)
+    return res
+
+
+def phase_gate_mix(dev) -> dict:
+    """The gate mix (models/gate_mix.py: every gate of the recursion set)
+    at 2^12 rows under standard_recursion_config: built by the port on the
+    card, its program compiled, the device witness plan refused (the host
+    engine runs), proved cold and warm and verified; every proof the
+    pinned GATE_MIX_PROOF_SHA256, the port's CPU proof of the same circuit
+    and seed."""
+    import torch
+    from plonky2_tpu_torch.iop import device_witness as dw
+    from plonky2_tpu_torch.models.gate_mix import build_gate_mix_circuit
+    from plonky2_tpu_torch.runtime.session import ProverSession
+    reset_launch_counts()
+    t = time.perf_counter()
+    data, pw, n_gates = build_gate_mix_circuit(copies=GATE_MIX_COPIES,
+                                               seed=SEED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    gates = [g.id().split(" ")[0].split("(")[0] for g in data.common.gates]
+    check(data.common.degree_bits() == GATE_MIX_LOG_N,
+          f"the gate mix has 2^{data.common.degree_bits()} rows")
+    log(f"  build: {build_s:.3f} s, {n_gates} gates in "
+        f"{data.common.degree()} rows; {len(gates)} gate types {gates}")
+    timer = StageTimer()
+    sess = ProverSession(data, timing=timer)
+    check(dw.build_plan(data.prover_only, data.common, pw, dev) is None,
+          "the device witness plan took the gate mix")
+    form = k6_form_of(sess)
+    log(f"  quotient program compiled in {timer.ms['quotient program']:.3f}"
+        f" ms: {form}; the device witness plan refuses the circuit")
+    res = prove_session(sess, pw, GATE_MIX_PATH, "gate mix",
+                        GATE_MIX_PROOF_SHA256, False)
+    res.update(build_s=build_s, compile_ms=timer.ms["quotient program"],
+               k6_form=form, gates=gates, n_gates=n_gates)
+    return res
 
 
 def check_plan_witness(sess, pw, dev) -> dict:
@@ -2351,10 +2664,18 @@ def main() -> int:
                f"2^{SESSION_LOG2_LEAVES} leaves, built, proved and "
                "verified by the port)"):
         paths.update(phase_session(dev))
+    with phase(f"9c the same tree under standard_recursion_config (135 "
+               "wires), compiled, proved and verified"):
+        paths["standard"] = phase_standard(dev)
+    torch.cuda.empty_cache()
+    with phase(f"9d the gate mix at 2^{GATE_MIX_LOG_N} rows (every gate of "
+               "the recursion set, host witness), proved and verified"):
+        paths["gate_mix"] = phase_gate_mix(dev)
     with phase("10 kernels line"):
         line = kernels_line(kern, paths, smi, waves)
         line["narrow_levels"] = narrow
         line["witness_waves"] = waves
+        line["k6_programs"] = kern["k6_programs"]
         line["paths"] = {
             k: {f: p[f] for f in ("cold_s", "warm_s", "peak_bytes",
                                   "resident_bytes", "profile") if f in p}
@@ -2363,7 +2684,8 @@ def main() -> int:
             for f in ("stages_ms", "merkle_levels", "host", "k2_before",
                       "runs", "session_s", "generators", "host_rss_gib",
                       "plan_check", "grind", "k7_waves", "fri_paths",
-                      "k8_record"):
+                      "k8_record", "compile_ms", "k6_form", "build_s",
+                      "build_stages_ms", "gates", "n_gates"):
                 if f in p:
                     line["paths"][k][f] = p[f]
     with phase("11 int32 multiply rate and field-product SASS"):

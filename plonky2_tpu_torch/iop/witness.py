@@ -28,6 +28,15 @@ class PartialWitness:
     def set_wire(self, row: int, column: int, value: int) -> None:
         self.set_target(("w", row, column), value)
 
+    def set_extension_target(self, et, value) -> None:
+        """An extension target (t0, t1) to the pair (v0, v1)."""
+        self.set_target(et[0], value[0])
+        self.set_target(et[1], value[1])
+
+    def set_extension_targets(self, ets, values) -> None:
+        for et, v in zip(ets, values):
+            self.set_extension_target(et, v)
+
     def set_hash_target(self, ht, hash4) -> None:
         arr = np.asarray(hash4, dtype=np.uint64).reshape(4)
         for t, v in zip(ht, arr):

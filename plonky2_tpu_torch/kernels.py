@@ -65,8 +65,11 @@ SIGNATURES = {
                                ("n_ops", _I), ("bank", _P),
                                ("bank_size", _I), ("input_slot", _P),
                                ("out_operands", _P),
-                               ("n_out", _I), ("n_slots", _I), ("C", _LL),
-                               ("device", _I), ("stream", _P)),
+                               ("n_out", _I), ("n_slots", _I),
+                               ("n_shared", _I), ("lanes", _I),
+                               ("bank_shared", _I), ("scratch", _P),
+                               ("scratch_lanes", _LL),
+                               ("C", _LL), ("device", _I), ("stream", _P)),
     "plk_poseidon_wires_waves": (("values", _P), ("dep_idx", _P),
                                  ("out_idx", _P), ("offsets", _P),
                                  ("n_waves", _I), ("R", _LL),

@@ -8,8 +8,11 @@ polynomials, the copy-constraint forest and the sigmas, the
 constants-sigmas commitment, the generators indexed by the slots they
 watch, and the circuit digest.  The commitment runs on the device through
 fri/oracle.py:PolynomialBatch.from_values (kernels K3, K5, K1 and K2 on a
-card).  The gadget mixins of the JAX builder (extension field, u32,
-ECDSA, Merkle, recursion) and the cyclic-recursion goal are ROADMAP 15c.
+card).  It takes the JAX builder's gadget mixins for the extension field
+(gadgets/extension.py), bit splits, exponentiation and random access
+(gadgets/split.py) and coset interpolation (gates/interpolation.py); its
+u32, ECDSA, Merkle and recursion mixins and the cyclic-recursion goal are
+ROADMAP 15c.
 """
 from __future__ import annotations
 
@@ -20,9 +23,12 @@ import numpy as np
 from .. import resolve_device
 from ..field import goldilocks as gl
 from ..fri.oracle import PolynomialBatch
+from ..gadgets.extension import ExtensionGadgets
+from ..gadgets.split import SplitGadgets
 from ..gates.basic import (ArithmeticGate, ConstantGate, NoopGate,
                            PublicInputGate)
 from ..gates.gate import Gate, selector_polynomials
+from ..gates.interpolation import InterpolationGadgets
 from ..gates.poseidon_gate import (WIRE_SWAP, PoseidonGate, wire_input,
                                    wire_output)
 from ..hash.hashers import POSEIDON_CONFIG
@@ -45,7 +51,7 @@ class GateInstance:
         self.constants = constants
 
 
-class CircuitBuilder:
+class CircuitBuilder(ExtensionGadgets, SplitGadgets, InterpolationGadgets):
     def __init__(self, config: CircuitConfig):
         self.config = config
         self.gate_set: Dict[str, Gate] = {}
@@ -57,6 +63,7 @@ class CircuitBuilder:
         self.constants_to_targets: Dict[int, Target] = {}
         self.targets_to_constants: Dict[Target, int] = {}
         self.base_arithmetic_results: Dict[tuple, Target] = {}
+        self.arithmetic_ext_results: Dict[tuple, tuple] = {}
         # gate id -> {params: (gate index, next free slot)}
         self.current_slots: Dict[str, Dict[tuple, Tuple[int, int]]] = {}
         self.constant_generators: List[ConstantGenerator] = []

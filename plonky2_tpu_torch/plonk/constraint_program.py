@@ -1,12 +1,18 @@
-"""Compiled constraint programs: data, host scalar bank, plain interpreter.
+"""Constraint programs: the compiler, the program, its plain interpreter.
 
-The port's counterpart of the execution half of
-plonky2_tpu/plonk/constraint_program.py: the ``ConstraintProgram`` register
-machine (:305), its host ``scalar_bank`` (:323) and the interpreter that
-``run_numpy`` (:348) and the Pallas kernel (:459) implement.  The compiler
-(tracing, CSE, wave scheduling, register allocation) stays in the JAX
-package: a compiled program is plain arrays, carried across by
-``program_from_arrays`` and shipped as an ``.npz`` (``save``/``load``).
+The port's copy of plonky2_tpu/plonk/constraint_program.py.  The compiler
+traces expressions into a hash-consed graph (``ProgramBuilder``, through
+``ExprAlgebra``: common subexpressions shared, scalar-only subexpressions
+folded into a host scalar tape, constants folded), then drops dead nodes,
+fuses single-use products into their sums, schedules the ops into
+same-opcode waves and allocates registers (``compile``).  Its output
+equals the JAX compiler's array for array: every tie of the schedule and
+the allocator breaks the same way.  A compiled program is plain arrays
+(``ConstraintProgram``), which ``save``/``load`` keep as an ``.npz`` and
+``program_from_arrays`` reads from any object with the JAX program's
+attributes.  ``scalar_bank`` evaluates the scalar tape on the host;
+``run_plain`` is the interpreter that ``run_numpy`` and the Pallas kernel
+(JAX :459) implement.
 
 Registers [0, n_inputs) are preloaded with the vector inputs.  Waves run in
 order; every slot of a wave reads its operands before any slot writes (the
@@ -26,7 +32,7 @@ from __future__ import annotations
 import functools
 import heapq
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +64,372 @@ _PROGRAM_ARRAYS = ("wave_opcodes", "wave_dst", "wave_a", "wave_b", "wave_c",
 _PROGRAM_INTS = ("n_inputs", "n_regs", "wave_width", "n_scalar_inputs",
                  "n_ops")
 
+
+
+# -- the compiler (JAX :47-247, :249-302, :569-666) -------------------------
+
+class EV:
+    """Expression value handle: ('v', id) a vector node, ('s', id) a
+    scalar node."""
+    __slots__ = ("kind", "id")
+
+    def __init__(self, kind: str, id_: int):
+        self.kind = kind
+        self.id = id_
+
+
+class ProgramBuilder:
+    """Hash-consed expression graph over vector inputs and host scalars."""
+
+    def __init__(self):
+        # scalar nodes: ('k', value) | ('in', slot) | (op, a_sid, b_sid)
+        self.snodes: List[tuple] = []
+        self._scse: Dict[tuple, int] = {}
+        self.n_scalar_inputs = 0
+        # vector nodes: ('in', index, None) or (opcode, x, y), x a vector
+        # id and y a vector id (ADD, SUB, MUL) or a scalar id (ADDS, SUBS,
+        # MULS)
+        self.vnodes: List[tuple] = []
+        self._vcse: Dict[tuple, int] = {}
+        self.n_vector_inputs = 0
+        self.outputs: List[EV] = []
+
+    # -- the scalar graph ----------------------------------------------------
+
+    def _snode(self, rec: tuple) -> int:
+        sid = self._scse.get(rec)
+        if sid is None:
+            sid = len(self.snodes)
+            self.snodes.append(rec)
+            self._scse[rec] = sid
+        return sid
+
+    def sc_known(self, value: int) -> EV:
+        return EV("s", self._snode(("k", value % gl.P)))
+
+    def scalar_input(self) -> EV:
+        slot = self.n_scalar_inputs
+        self.n_scalar_inputs += 1
+        return EV("s", self._snode(("in", slot)))
+
+    def _sval(self, sid: int) -> Optional[int]:
+        rec = self.snodes[sid]
+        return rec[1] if rec[0] == "k" else None
+
+    def _sop(self, op: str, a: int, b: int) -> int:
+        va, vb = self._sval(a), self._sval(b)
+        if va is not None and vb is not None:
+            if op == "add":
+                return self._snode(("k", (va + vb) % gl.P))
+            if op == "sub":
+                return self._snode(("k", (va - vb) % gl.P))
+            return self._snode(("k", (va * vb) % gl.P))
+        if op in ("add", "mul") and a > b:
+            a, b = b, a
+        return self._snode((op, a, b))
+
+    def _sneg(self, sid: int) -> int:
+        return self._sop("sub", self._snode(("k", 0)), sid)
+
+    # -- the vector graph ----------------------------------------------------
+
+    def vector_input(self) -> EV:
+        vid = len(self.vnodes)
+        self.vnodes.append(("in", self.n_vector_inputs, None))
+        self.n_vector_inputs += 1
+        return EV("v", vid)
+
+    def _vnode(self, op: int, x: int, y: int) -> EV:
+        if op in (ADD, MUL) and x > y:
+            x, y = y, x
+        key = (op, x, y)
+        vid = self._vcse.get(key)
+        if vid is None:
+            vid = len(self.vnodes)
+            self.vnodes.append(key)
+            self._vcse[key] = vid
+        return EV("v", vid)
+
+    # -- the algebra ---------------------------------------------------------
+
+    def add(self, a: EV, b: EV) -> EV:
+        if a.kind == "s" and b.kind == "s":
+            return EV("s", self._sop("add", a.id, b.id))
+        if a.kind == "s":
+            a, b = b, a
+        if b.kind == "s":
+            if self._sval(b.id) == 0:
+                return a
+            return self._vnode(ADDS, a.id, b.id)
+        return self._vnode(ADD, a.id, b.id)
+
+    def sub(self, a: EV, b: EV) -> EV:
+        if a.kind == "s" and b.kind == "s":
+            return EV("s", self._sop("sub", a.id, b.id))
+        if b.kind == "s":
+            if self._sval(b.id) == 0:
+                return a
+            return self._vnode(ADDS, a.id, self._sneg(b.id))
+        if a.kind == "s":
+            return self._vnode(SUBS, b.id, a.id)
+        if a.id == b.id:
+            return self.sc_known(0)
+        return self._vnode(SUB, a.id, b.id)
+
+    def mul(self, a: EV, b: EV) -> EV:
+        if a.kind == "s" and b.kind == "s":
+            return EV("s", self._sop("mul", a.id, b.id))
+        if a.kind == "s":
+            a, b = b, a
+        if b.kind == "s":
+            v = self._sval(b.id)
+            if v == 0:
+                return self.sc_known(0)
+            if v == 1:
+                return a
+            return self._vnode(MULS, a.id, b.id)
+        return self._vnode(MUL, a.id, b.id)
+
+    def mark_output(self, ev: EV) -> None:
+        self.outputs.append(ev)
+
+    # -- compilation ---------------------------------------------------------
+
+    def compile(self, wave_width: int = 16) -> "ConstraintProgram":
+        if any(ev.kind == "s" for ev in self.outputs):
+            raise ValueError("scalar outputs unsupported; vectorize first")
+        out_ids = [ev.id for ev in self.outputs]
+        n = len(self.vnodes)
+
+        # dead-code elimination: the live vector nodes, from the outputs
+        live = np.zeros(n, dtype=bool)
+        stack = list(out_ids)
+        while stack:
+            vid = stack.pop()
+            if live[vid]:
+                continue
+            live[vid] = True
+            op, x, y = self.vnodes[vid]
+            if op == "in":
+                continue
+            stack.append(x)
+            if op in (ADD, SUB, MUL):
+                stack.append(y)
+
+        # vector-operand use counts among the live nodes
+        uses = np.zeros(n, dtype=np.int64)
+        for vid in np.flatnonzero(live).tolist():
+            op, x, y = self.vnodes[vid]
+            if op == "in":
+                continue
+            uses[x] += 1
+            if op in (ADD, SUB, MUL):
+                uses[y] += 1
+        for vid in out_ids:
+            uses[vid] += 1
+
+        # mul-add fusion: ADD(m, c) with m a MUL or MULS read once
+        out_set = set(out_ids)
+        fused_into: Dict[int, tuple] = {}
+        consumed = np.zeros(n, dtype=bool)
+        for vid in np.flatnonzero(live).tolist():
+            op, x, y = self.vnodes[vid]
+            if op != ADD:
+                continue
+            for m, other in ((x, y), (y, x)):
+                mop, mx, my = self.vnodes[m]
+                if (mop in (MUL, MULS) and uses[m] == 1 and m not in out_set
+                        and not consumed[m]):
+                    fused_into[vid] = (MULADD if mop == MUL else MULADDS,
+                                       mx, my, other)
+                    consumed[m] = True
+                    break
+
+        # the op list in creation (topological) order:
+        # (opcode, dst vid, a, b, c)
+        ops: List[tuple] = []
+        for vid in np.flatnonzero(live & ~consumed).tolist():
+            op, x, y = self.vnodes[vid]
+            if op == "in":
+                continue
+            if vid in fused_into:
+                ops.append((fused_into[vid][0], vid) + fused_into[vid][1:])
+            else:
+                ops.append((op, vid, x, y, 0))
+
+        waves = _schedule_waves(ops, wave_width)
+        return _allocate(self, ops, waves, out_ids, wave_width)
+
+
+def _operand_vids(op: tuple) -> List[int]:
+    code, _dst, a, b, c = op
+    if code == MULADD:
+        return [a, b, c]
+    if code == MULADDS:
+        return [a, c]
+    if code in (ADD, SUB, MUL):
+        return [a, b]
+    return [a]                                  # ADDS, SUBS, MULS
+
+
+def _schedule_waves(ops: List[tuple], W: int) -> List[List[int]]:
+    """Greedy list scheduling into same-opcode waves of at most W ops: the
+    opcode with the most ready ops (the lowest on a tie) takes its first W.
+    An op may run in a wave only if its operands are inputs or were defined
+    in strictly earlier waves (a wave reads all its operands before any
+    write)."""
+    n = len(ops)
+    defop: Dict[int, int] = {op[1]: i for i, op in enumerate(ops)}
+    indeg = np.zeros(n, dtype=np.int64)
+    dependents: List[List[int]] = [[] for _ in range(n)]
+    for i, op in enumerate(ops):
+        for v in _operand_vids(op):
+            j = defop.get(v)
+            if j is not None:
+                indeg[i] += 1
+                dependents[j].append(i)
+
+    ready: List[List[int]] = [[] for _ in range(N_OPCODES)]
+    for i in range(n):
+        if indeg[i] == 0:
+            ready[ops[i][0]].append(i)
+    waves: List[List[int]] = []
+    done = 0
+    while done < n:
+        code = max(range(N_OPCODES), key=lambda c: len(ready[c]))
+        if not ready[code]:
+            raise ValueError("cycle in constraint program")
+        take = ready[code][:W]
+        ready[code] = ready[code][W:]
+        waves.append(take)
+        done += len(take)
+        for i in take:                  # release dependents after the wave
+            for j in dependents[i]:
+                indeg[j] -= 1
+                if indeg[j] == 0:
+                    ready[ops[j][0]].append(j)
+    return waves
+
+
+def _allocate(builder: ProgramBuilder, ops: List[tuple],
+              waves: List[List[int]], out_ids: List[int],
+              W: int) -> "ConstraintProgram":
+    """Linear-scan register allocation over the wave schedule: a register
+    whose value is last read in a wave is free for that wave's results (the
+    most recently freed first); padded slots write the dump register,
+    allocated last."""
+    n_in = builder.n_vector_inputs
+    reg_of: Dict[int, int] = {vid: x for vid, (op, x, _y)
+                              in enumerate(builder.vnodes) if op == "in"}
+    last_use: Dict[int, int] = {}
+    for w, wave in enumerate(waves):
+        for i in wave:
+            for v in _operand_vids(ops[i]):
+                last_use[v] = w
+    expiring: Dict[int, List[int]] = {}
+    for v, w in last_use.items():
+        expiring.setdefault(w, []).append(v)
+    out_set = set(out_ids)
+
+    shape = (len(waves), W)
+    wave_dst = np.full(shape, -1, dtype=np.int32)
+    wave_a, wave_b, wave_c = (np.zeros(shape, dtype=np.int32)
+                              for _ in range(3))
+    wave_opcodes = np.zeros(len(waves), dtype=np.int32)
+    bank_of: Dict[int, int] = {}
+    bank_sids: List[int] = []
+
+    def bank_slot(sid: int) -> int:
+        if sid not in bank_of:
+            bank_of[sid] = len(bank_sids)
+            bank_sids.append(sid)
+        return bank_of[sid]
+
+    free: List[int] = []
+    next_reg = n_in
+    for w, wave in enumerate(waves):
+        wave_opcodes[w] = ops[wave[0]][0]
+        rows = []
+        for i in wave:
+            opc, dst, a, b, c = ops[i]
+            if opc in (ADD, SUB, MUL):
+                rb, rc = reg_of[b], 0
+            elif opc == MULADD:
+                rb, rc = reg_of[b], reg_of[c]
+            elif opc == MULADDS:
+                rb, rc = bank_slot(b), reg_of[c]
+            else:                       # ADDS, SUBS, MULS: b is a scalar
+                rb, rc = bank_slot(b), 0
+            rows.append((dst, reg_of[a], rb, rc))
+        # registers whose value dies in this wave (reads precede writes)
+        for v in expiring.get(w, ()):
+            if v not in out_set and v in reg_of:
+                free.append(reg_of[v])
+        for k, (dst, ra, rb, rc) in enumerate(rows):
+            if free:
+                rd = free.pop()
+            else:
+                rd = next_reg
+                next_reg += 1
+            reg_of[dst] = rd
+            wave_dst[w, k], wave_a[w, k] = rd, ra
+            wave_b[w, k], wave_c[w, k] = rb, rc
+    dump = next_reg
+    wave_dst[wave_dst < 0] = dump
+    kind, ta, tb, tk = _tape_arrays(builder.snodes)
+    return ConstraintProgram(
+        n_inputs=n_in, n_regs=dump + 1, wave_width=W,
+        wave_opcodes=wave_opcodes, wave_dst=wave_dst, wave_a=wave_a,
+        wave_b=wave_b, wave_c=wave_c,
+        out_regs=np.array([reg_of[v] for v in out_ids], dtype=np.int32),
+        tape_kind=kind, tape_a=ta, tape_b=tb, tape_const=tk,
+        bank_sids=np.array(bank_sids, dtype=np.int32),
+        n_scalar_inputs=builder.n_scalar_inputs, n_ops=len(ops))
+
+
+class ExprAlgebra:
+    """The algebra (plonk/algebra.py) that records a program."""
+
+    def __init__(self, builder: ProgramBuilder):
+        self.b = builder
+
+    def const(self, c: int) -> EV:
+        return self.b.sc_known(c)
+
+    def zero(self) -> EV:
+        return self.b.sc_known(0)
+
+    def one(self) -> EV:
+        return self.b.sc_known(1)
+
+    def add(self, a: EV, b: EV) -> EV:
+        return self.b.add(a, b)
+
+    def sub(self, a: EV, b: EV) -> EV:
+        return self.b.sub(a, b)
+
+    def mul(self, a: EV, b: EV) -> EV:
+        return self.b.mul(a, b)
+
+    def neg(self, a: EV) -> EV:
+        return self.b.sub(self.b.sc_known(0), a)
+
+    def add_const(self, a: EV, c: int) -> EV:
+        return self.b.add(a, self.b.sc_known(c))
+
+    def mul_const(self, a: EV, c: int) -> EV:
+        return self.b.mul(a, self.b.sc_known(c))
+
+    def exp(self, a: EV, e: int) -> EV:
+        result = self.b.sc_known(1)
+        base = a
+        while e > 0:
+            if e & 1:
+                result = self.b.mul(result, base)
+            e >>= 1
+            if e:
+                base = self.b.mul(base, base)
+        return result
 
 @dataclass(eq=False)
 class ConstraintProgram:
@@ -294,8 +666,9 @@ def linearize(prog: ConstraintProgram) -> LinearProgram:
     later op reads it too), the latest in wave order on a tie (which
     finishes one chain of work before it starts the next).  Values then
     take the lowest free slot; an output's value stays in its slot to the
-    end.  Field arithmetic is exact, so any order gives the same outputs.
-    Deterministic; cached per program."""
+    end; last, the slots are renumbered busiest first.  Field arithmetic
+    is exact, so any order gives the same outputs.  Deterministic; cached
+    per program."""
     ops, outs = _ssa(prog)
     n_in = prog.n_inputs
     # dead-op elimination, backwards from the outputs
@@ -400,11 +773,58 @@ def linearize(prog: ConstraintProgram) -> LinearProgram:
                          "rows do not fit the op format")
     out_ops = [slot_of[v] if v in slot_of else OPERAND_INPUT | row_of[v]
                for v in outs]
+    packed, input_slot, out_ops = _busiest_slots_first(
+        packed, input_slot, out_ops, n_slots)
     return LinearProgram(
         ops=np.array(packed, dtype=np.uint64), n_slots=n_slots,
         input_rows=np.array(read_inputs, dtype=np.int32),
         input_slot=input_slot, out_operands=np.array(out_ops, np.int32),
         n_inputs=n_in)
+
+
+def _busiest_slots_first(packed, input_slot, out_ops, n_slots):
+    """The slots renumbered by how often the ops read and write them, most
+    first (the lower number on a tie): K6 keeps the lowest-numbered slots
+    in shared memory when not all of them fit."""
+    def slots_of(f):
+        return [] if f & OPERAND_INPUT else [f]
+
+    count = [0] * n_slots
+    for op in packed:
+        code = op & 15
+        fa, fb, fc = (op >> 16) & 0xFFFF, (op >> 32) & 0xFFFF, op >> 48
+        used = [(op >> 4) & 0xFFF] + slots_of(fa)
+        if code not in SCALAR_B:
+            used += slots_of(fb)
+        if code in (MULADD, MULADDS):
+            used += slots_of(fc)
+        for sl in used:
+            count[sl] += 1
+    for sl in input_slot.tolist():
+        if sl >= 0:
+            count[sl] += 1                  # the store at the first read
+    for f in out_ops:
+        for sl in slots_of(f):
+            count[sl] += 1
+    order = sorted(range(n_slots), key=lambda sl: (-count[sl], sl))
+    new = [0] * n_slots
+    for rank, sl in enumerate(order):
+        new[sl] = rank
+
+    def operand(f):
+        return f if f & OPERAND_INPUT else new[f]
+
+    out = []
+    for op in packed:
+        code = op & 15
+        fa, fb, fc = (op >> 16) & 0xFFFF, (op >> 32) & 0xFFFF, op >> 48
+        fb = fb if code in SCALAR_B else operand(fb)
+        fc = operand(fc) if code in (MULADD, MULADDS) else fc
+        out.append(code | new[(op >> 4) & 0xFFF] << 4 | operand(fa) << 16
+                   | fb << 32 | fc << 48)
+    slots = np.array([new[sl] if sl >= 0 else -1
+                      for sl in input_slot.tolist()], dtype=np.int32)
+    return out, slots, [operand(f) for f in out_ops]
 
 
 def run_plain_linear(lin: LinearProgram, inputs: torch.Tensor,
@@ -448,11 +868,11 @@ def run_plain_linear(lin: LinearProgram, inputs: torch.Tensor,
 
 # -- carrying a program across, and storing it ------------------------------
 
-def program_from_arrays(obj) -> ConstraintProgram:
-    """A port program from any object with the JAX ``ConstraintProgram``'s
-    attributes (read by name; nothing of the JAX package is imported)."""
+def _tape_arrays(snodes) -> tuple:
+    """(kind int8, a int32, b int32, const uint64) arrays of a scalar tape
+    given as ('k', value) | ('in', slot) | (op, a_sid, b_sid) records."""
     kinds, ta, tb, tk = [], [], [], []
-    for rec in obj.snodes:
+    for rec in snodes:
         op = rec[0]
         kinds.append(TAPE_KINDS.index(op))
         if op == "k":
@@ -467,6 +887,14 @@ def program_from_arrays(obj) -> ConstraintProgram:
             ta.append(int(rec[1]))
             tb.append(int(rec[2]))
             tk.append(0)
+    return (np.asarray(kinds, dtype=np.int8), np.asarray(ta, dtype=np.int32),
+            np.asarray(tb, dtype=np.int32), np.asarray(tk, dtype=np.uint64))
+
+
+def program_from_arrays(obj) -> ConstraintProgram:
+    """A port program from any object with the JAX ``ConstraintProgram``'s
+    attributes (read by name; nothing of the JAX package is imported)."""
+    kinds, ta, tb, tk = _tape_arrays(obj.snodes)
     i32 = lambda x: np.asarray(x, dtype=np.int32)  # noqa: E731
     return ConstraintProgram(
         n_inputs=int(obj.n_inputs), n_regs=int(obj.n_regs),
@@ -474,8 +902,7 @@ def program_from_arrays(obj) -> ConstraintProgram:
         wave_opcodes=i32(obj.wave_opcodes), wave_dst=i32(obj.wave_dst),
         wave_a=i32(obj.wave_a), wave_b=i32(obj.wave_b),
         wave_c=i32(obj.wave_c), out_regs=i32(obj.out_regs),
-        tape_kind=np.asarray(kinds, dtype=np.int8), tape_a=i32(ta),
-        tape_b=i32(tb), tape_const=np.asarray(tk, dtype=np.uint64),
+        tape_kind=kinds, tape_a=ta, tape_b=tb, tape_const=tk,
         bank_sids=i32(obj.bank_sids),
         n_scalar_inputs=int(obj.n_scalar_inputs), n_ops=int(obj.n_ops))
 
@@ -578,3 +1005,34 @@ def in_wave_reuse(prog: ConstraintProgram) -> bool:
             if d != prog.dump_reg and np.isin(d, np.concatenate(later)):
                 return True
     return False
+
+
+WIDE_VALUES = 1600      # wide_program's values
+WIDE_INPUTS = 64        # and its vector inputs
+
+
+def wide_program() -> ConstraintProgram:
+    """A compiled program that keeps about WIDE_VALUES / 2 values live at
+    once, for checking kernel K6 on programs wider than shared memory
+    holds: WIDE_VALUES products of inputs (each plus a scalar; the pairs
+    from numpy seed 0), then one chain acc = acc * v[i] + v[n - i] that
+    reads each value twice, far apart.  Two outputs: the chain and the
+    sum of the values' squares."""
+    n_values = WIDE_VALUES
+    rng = np.random.default_rng(0)
+    b = ProgramBuilder()
+    alg = ExprAlgebra(b)
+    xs = [b.vector_input() for _ in range(WIDE_INPUTS)]
+    ss = [b.scalar_input() for _ in range(4)]
+    pick = rng.integers(0, WIDE_INPUTS, size=(n_values, 2))
+    vals = [alg.add(alg.mul(xs[i], xs[j]), ss[k % 4])
+            for k, (i, j) in enumerate(pick.tolist())]
+    acc = vals[0]
+    for i in range(1, n_values):
+        acc = alg.add(alg.mul(acc, vals[i]), vals[n_values - i])
+    sq = alg.zero()
+    for v in vals[::7]:
+        sq = alg.add(sq, alg.mul(v, v))
+    b.mark_output(acc)
+    b.mark_output(sq)
+    return b.compile()

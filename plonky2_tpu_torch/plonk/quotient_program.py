@@ -1,8 +1,12 @@
 """The quotient polynomials, evaluated by the compiled constraint program.
 
 The port's counterpart of plonky2_tpu/plonk/quotient_program.py
-(``quotient_scalar_inputs``, ``DeviceQuotient``).  The program's vector
-inputs are, in order (JAX :11-14):
+(``build_quotient_program``, ``quotient_scalar_inputs``,
+``DeviceQuotient``).  ``build_quotient_program`` traces
+plonk/vanishing.py:eval_vanishing_poly (every gate's filtered constraints,
+the copy-constraint terms, the alpha reduction, the 1/Z_H(x) factor) into
+a constraint program, once a circuit.  The program's vector inputs are,
+in order (JAX :11-14):
 
     [constants | sigmas] (cs oracle), wires, [zs | partial products]
     (Z/PP oracle), next zs (Z/PP oracle, rows shifted by one subgroup
@@ -31,8 +35,46 @@ from ..field import goldilocks as gl
 from ..field.convert import from_u64
 from ..ops import ntt
 from ..utils.bits import bit_reverse_indices
-from .constraint_program import linearize
+from .algebra import EvaluationVars
+from .constraint_program import (ConstraintProgram, ExprAlgebra,
+                                 ProgramBuilder, linearize)
 from .constraint_program_cuda import run_program_cuda
+from .vanishing import eval_vanishing_poly
+
+
+def build_quotient_program(common_data) -> ConstraintProgram:
+    """The quotient's constraint program of a circuit (its
+    CommonCircuitData), equal to the JAX compiler's (JAX :30-63)."""
+    config = common_data.config
+    nch = config.num_challenges
+    b = ProgramBuilder()
+    alg = ExprAlgebra(b)
+
+    n_pre = common_data.num_preprocessed_polys()
+    cs = [b.vector_input() for _ in range(n_pre)]
+    wires = [b.vector_input() for _ in range(config.num_wires)]
+    zspp = [b.vector_input()
+            for _ in range(common_data.partial_products_range().stop)]
+    next_zs = [b.vector_input() for _ in range(nch)]
+    x = b.vector_input()
+    l0 = b.vector_input()
+    zh_inv = b.vector_input()
+
+    pih = [b.scalar_input() for _ in range(4)]
+    betas = [b.scalar_input() for _ in range(nch)]
+    gammas = [b.scalar_input() for _ in range(nch)]
+    alphas = [b.scalar_input() for _ in range(nch)]
+
+    vars = EvaluationVars(cs[:common_data.num_constants], wires, pih)
+    s_sigmas = [cs[j] for j in common_data.sigmas_range()]
+    local_zs = [zspp[j] for j in common_data.zs_range()]
+    partial_products = [zspp[j] for j in common_data.partial_products_range()]
+    vals = eval_vanishing_poly(alg, common_data, x, vars, local_zs, next_zs,
+                               partial_products, s_sigmas, betas, gammas,
+                               alphas, l0)
+    for v in vals:
+        b.mark_output(alg.mul(v, zh_inv))
+    return b.compile()
 
 
 def quotient_scalar_inputs(public_inputs_hash, betas, gammas,

@@ -2,9 +2,10 @@
 copy of plonky2_tpu/plonk/vanishing.py; reference
 plonky2/src/plonk/vanishing_poly.rs, util/partial_products.rs).
 
-The verifier evaluates it on the extension at zeta (plonk/verifier.py);
-the prover's quotient runs the compiled constraint program instead
-(plonk/quotient_program.py).
+The verifier evaluates it on the extension at zeta (plonk/verifier.py),
+with the challenges as ints; plonk/quotient_program.py traces it into the
+quotient's constraint program, with the challenges as the program's scalar
+inputs (algebra values).
 """
 from __future__ import annotations
 
@@ -59,7 +60,7 @@ def eval_vanishing_poly(alg, common_data, x, vars: EvaluationVars,
                         alphas: List[int], l_0_x) -> list:
     """The num_challenges alpha-reduced vanishing values at `x` (an
     algebra value), with L_0(x) given in the same algebra; the challenges
-    are base-field ints."""
+    are base-field ints or algebra values (JAX :58-112)."""
     max_degree = common_data.quotient_degree_factor
     num_prods = common_data.num_partial_products
     num_routed = common_data.config.num_routed_wires
@@ -78,11 +79,20 @@ def eval_vanishing_poly(alg, common_data, x, vars: EvaluationVars,
         denominators = []
         for j in range(num_routed):
             wire = vars.local_wires[j]
-            bk = (beta * common_data.k_is[j]) % gl.P
-            num = alg.add(wire, alg.mul_const(x, bk))
-            den = alg.add(wire, alg.mul_const(s_sigmas[j], beta))
-            numerators.append(alg.add_const(num, gamma))
-            denominators.append(alg.add_const(den, gamma))
+            if isinstance(beta, int):
+                bk = (beta * common_data.k_is[j]) % gl.P
+                num = alg.add(wire, alg.mul_const(x, bk))
+                den = alg.add(wire, alg.mul_const(s_sigmas[j], beta))
+            else:
+                num = alg.add(wire, alg.mul(
+                    x, alg.mul_const(beta, common_data.k_is[j])))
+                den = alg.add(wire, alg.mul(s_sigmas[j], beta))
+            if isinstance(gamma, int):
+                numerators.append(alg.add_const(num, gamma))
+                denominators.append(alg.add_const(den, gamma))
+            else:
+                numerators.append(alg.add(num, gamma))
+                denominators.append(alg.add(den, gamma))
         pps = partial_products[i * num_prods:(i + 1) * num_prods]
         vanishing_partial_products_terms.extend(
             check_partial_products(alg, numerators, denominators, pps,
@@ -90,7 +100,9 @@ def eval_vanishing_poly(alg, common_data, x, vars: EvaluationVars,
 
     terms = (vanishing_z_1_terms + vanishing_partial_products_terms
              + constraint_terms)
-    return [reduce_with_powers(alg, terms, alg.const(a)) for a in alphas]
+    return [reduce_with_powers(alg, terms,
+                               alg.const(a) if isinstance(a, int) else a)
+            for a in alphas]
 
 
 def eval_l_0_ext(alg, n: int, x):

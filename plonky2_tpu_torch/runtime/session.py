@@ -10,64 +10,34 @@ engine, iop/generator.py, only for a circuit the plan refuses, as in the
 JAX package's prover), then runs the proof's phases 2-8 there; ``verify``
 runs the port's verifier.
 
-With no ``program``, the session takes the shipped flagship program
-(plonk/programs/hash_tree_wide_ecc.npz) when the circuit matches it: the
-same CircuitShape up to degree_bits and the same gates, which holds for
-every hash tree of at least 4 leaves under
-CircuitConfig.wide_ecc_config().  Any other circuit needs its program
-given; the port has no quotient compiler yet.
+The session compiles the circuit's quotient program
+(plonk/quotient_program.py:build_quotient_program), once, as the JAX
+package's session does: any circuit built from the port's gates proves.
 """
 from __future__ import annotations
-
-import dataclasses
-import functools
-import os
 
 from .. import resolve_device
 from ..iop import device_witness as dw
 from ..iop.generator import generate_partial_witness
-from ..plonk import constraint_program as cp
-from ..plonk.circuit_shape import CircuitShape
 from ..plonk.prover import ProverContext, prove
 from ..plonk.prover_data import ProverData
+from ..plonk.quotient_program import build_quotient_program
 from ..utils.timing import NoopTiming
-
-SHIPPED_PROGRAM = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "plonk", "programs",
-    "hash_tree_wide_ecc.npz")
-
-
-@functools.lru_cache(maxsize=1)
-def _shipped():
-    prog, shape = cp.load(SHIPPED_PROGRAM)
-    return prog, shape, cp.load_gate_ids(SHIPPED_PROGRAM)
-
-
-def shipped_program(common):
-    """The shipped quotient program, if the circuit `common` (a
-    CommonCircuitData) is one it was compiled for; else
-    NotImplementedError."""
-    prog, shape, gate_ids = _shipped()
-    want = CircuitShape.from_common(common)
-    if (dataclasses.replace(shape, degree_bits=want.degree_bits) != want
-            or gate_ids != tuple(g.id() for g in common.gates)):
-        raise NotImplementedError(
-            "no shipped quotient program for this circuit, and the port "
-            "has no quotient compiler (ROADMAP 15c): pass program=")
-    return prog
 
 
 class ProverSession:
     """Made once per circuit and device; ``prove`` once per witness."""
 
-    def __init__(self, data, program=None, device=None):
-        """data: the port's CircuitData; program: its quotient
-        ConstraintProgram (the shipped one when None); runs on `device`
-        (default cuda), where build() must have committed the circuit."""
+    def __init__(self, data, device=None, timing=None):
+        """data: the port's CircuitData, whose quotient program is compiled
+        here (under ``timing.scope("quotient program")``); runs on
+        `device` (default cuda), where build() must have committed the
+        circuit."""
+        timing = timing if timing is not None else NoopTiming()
         self.data = data
         self.device = resolve_device(device)
-        if program is None:
-            program = shipped_program(data.common)
+        with timing.scope("quotient program"):
+            program = build_quotient_program(data.common)
         self.prover_data = ProverData.from_circuit(data.prover_only,
                                                    data.common, program)
         self.context = ProverContext(

@@ -7,10 +7,15 @@ config, plonky2_tpu_torch's ``build(device="cpu")`` gives JAX's
 coefficients and the sigma values (exact uint64), k_is, the
 representative map, the public inputs, the constants-sigmas cap, the
 circuit digest, the FRI parameters, the generators per class and the
-generators' watch index.  The session picks the shipped quotient program
-for the trees and raises for fibonacci."""
+generators' watch index.  The session compiles the trees' quotient
+program, which is the shipped one, and compiles and proves fibonacci.
+The port's build of the tree of 2^10 leaves under
+standard_recursion_config equals the JAX build committed in
+plonky2_tpu_torch/plonk/programs/hash_tree_standard_k10.json."""
 import collections
 import functools
+import json
+import os
 
 import numpy as np
 import pytest
@@ -24,10 +29,14 @@ from plonky2_tpu_torch.fri.config import FriConfig, FriReductionStrategy
 from plonky2_tpu_torch.models.fibonacci import build_fibonacci_circuit
 from plonky2_tpu_torch.models.hash_tree import build_hash_tree_circuit
 from plonky2_tpu_torch.plonk.config import CircuitConfig
-from plonky2_tpu_torch.runtime.session import ProverSession, shipped_program
+from plonky2_tpu_torch.runtime.session import ProverSession
 from tests.test_plonk import fast_test_config
 from tests.test_torch_prover import one_torch_thread  # noqa: F401
+from tests.test_torch_quotient import STANDARD_JSON
 
+SHIPPED = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "plonky2_tpu_torch", "plonk", "programs",
+    "hash_tree_wide_ecc.npz")
 CIRCUITS = [("hash_tree", 2), ("hash_tree", 3), ("hash_tree", 4),
             ("hash_tree", 5), ("fibonacci", 99)]
 
@@ -123,18 +132,31 @@ def test_generators_equal_jax(name, size):
 
 
 @pytest.mark.parametrize("size", [2, 3, 4, 5])
-def test_session_selects_the_shipped_program_for_trees(size):
+def test_session_compiles_the_shipped_program_for_trees(size):
+    """With no program given, the session compiles the tree's quotient
+    program, and it is the shipped flagship program, array for array."""
+    from plonky2_tpu_torch.plonk import constraint_program as cp
     (_, _, _), (td, _, _) = circuits("hash_tree", size)
-    prog = shipped_program(td.common)
+    sess = ProverSession(td, device="cpu")
+    prog = sess.prover_data.program
     assert prog.n_inputs == 343 and prog.n_outputs == 2
+    shipped, _ = cp.load(SHIPPED)
+    for k, v in shipped.arrays().items():
+        np.testing.assert_array_equal(np.asarray(prog.arrays()[k]),
+                                      np.asarray(v), err_msg=k)
+    # one program object a session: the kernel's caches key on it
+    assert sess.context.quotient.program is prog
 
 
-def test_session_without_a_program_raises_for_fibonacci():
-    (_, _, _), (td, _, _) = circuits("fibonacci", 99)
-    with pytest.raises(NotImplementedError, match="15c"):
-        shipped_program(td.common)
-    with pytest.raises(NotImplementedError, match="15c"):
-        ProverSession(td, device="cpu")
+def test_session_compiles_and_proves_fibonacci():
+    """A circuit that no shipped program fits (fibonacci) compiles in the
+    session and proves, and the proof verifies."""
+    import random
+    (_, _, _), (td, tpw, texp) = circuits("fibonacci", 99)
+    sess = ProverSession(td, device="cpu")
+    proof = sess.prove(tpw, rng=random.Random(1))
+    assert proof.public_inputs == texp
+    sess.verify(proof)
 
 
 def test_build_defaults_to_cuda(monkeypatch):
@@ -144,3 +166,26 @@ def test_build_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises((RuntimeError, AssertionError)):
         build_hash_tree_circuit(CircuitConfig.wide_ecc_config(), 2)
+
+
+def test_standard_reference_file_matches_port_build():
+    """The committed JAX build of the hash tree under
+    standard_recursion_config at 2^10 leaves
+    (tests/test_torch_quotient.py:write_standard_reference; chip_smoke.py
+    phase 9c holds the port's build on the card against it) equals the
+    port's build on the CPU: degree bits, circuit digest, the 16 cap
+    digests and the root."""
+    with open(STANDARD_JSON) as f:
+        stored = json.load(f)
+    assert (stored["log2_leaves"], stored["degree_bits"],
+            len(stored["constants_sigmas_cap"])) == (10, 11, 16)
+    data, _, root = build_hash_tree_circuit(
+        CircuitConfig.standard_recursion_config(), stored["log2_leaves"],
+        device="cpu")
+    ints = lambda a: [int(x) for x in np.asarray(  # noqa: E731
+        a, dtype=np.uint64).reshape(-1)]
+    assert data.common.degree_bits() == stored["degree_bits"]
+    assert ints(data.prover_only.circuit_digest) == stored["circuit_digest"]
+    assert [ints(d) for d in data.verifier_only.constants_sigmas_cap
+            .digests] == stored["constants_sigmas_cap"]
+    assert root == stored["root"]

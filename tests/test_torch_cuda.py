@@ -250,6 +250,59 @@ def test_constraint_program_kernel_flagship(dev):
             (prog.n_regs, 64), dtype=torch.int64, device=dev), bank)
 
 
+@pytest.mark.parametrize("lanes", [100, 5000, 40000])
+def test_constraint_program_kernel_spilling(dev, lanes):
+    """K6 on a program of more slots than shared memory holds at 32 lanes
+    (constraint_program.py:wide_program): the busiest slots in shared
+    memory, the rest in device scratch; lane counts below, near and far
+    above the lanes resident on the card (a block walks several tiles)."""
+    prog = cp.wide_program()
+    lin = cp.linearize(prog)
+    form = cpc.k6_form(lin.n_slots, len(prog.bank_sids))
+    assert lin.n_slots >= 1200 and form.n_spilled > 0
+    rng = np.random.default_rng(lanes)
+    inputs = _rand((prog.n_inputs, lanes), lanes, dev)
+    inputs[:, :50] = from_u64(BOUNDARY[rng.integers(
+        0, 5, size=(prog.n_inputs, 50))], dev)
+    bank = from_u64(prog.scalar_bank([7, 11, P - 1, 2]), dev)
+    before = cpc.run_program_cuda.launches
+    _equal(cpc.run_program_cuda(prog, inputs, bank),
+           cp.run_plain_linear(lin, inputs, bank))
+    assert cpc.run_program_cuda.launches == before + 1
+
+
+def test_constraint_program_kernel_bank_in_device_memory(dev):
+    """A bank too large for shared memory beside the slots is read from
+    device memory."""
+    prog = cp.random_program(np.random.default_rng(4), wave_width=8,
+                             n_regs=24)
+    bank = from_u64(prog.scalar_bank([5, P - 2]), dev)
+    big = torch.cat([bank, _rand((29000,), 4, dev)])
+    assert cpc.k6_form(cp.linearize(prog).n_slots, big.shape[0]).bank_words \
+        == 0
+    inputs = _rand((prog.n_inputs, 3000), 4, dev)
+    _equal(cpc.run_program_cuda(prog, inputs, big),
+           prog.run_plain(inputs, bank))
+
+
+def test_gate_mix_session_on_card_matches_cpu(dev):
+    """The gate mix (every gate of the recursion set, host witness)
+    proves on the card with the bytes of its CPU proof."""
+    import random
+
+    from plonky2_tpu_torch.models.gate_mix import build_gate_mix_circuit
+    from plonky2_tpu_torch.runtime.session import ProverSession
+    from plonky2_tpu_torch.utils.serialization import serialize_proof
+    blobs = {}
+    for where in (dev, "cpu"):
+        data, pw, _ = build_gate_mix_circuit(device=where)
+        sess = ProverSession(data, device=where)
+        proof = sess.prove(pw, rng=random.Random(3))
+        sess.verify(proof)
+        blobs[str(where)] = serialize_proof(proof)
+    assert blobs[str(dev)] == blobs["cpu"]
+
+
 def test_quotient_round_on_card_matches_cpu(dev):
     """The whole round at the flagship widths and a small degree."""
     import dataclasses

@@ -41,7 +41,6 @@ from plonky2_tpu_torch.utils.serialization import serialize_proof
 from tests.test_torch_circuit_builder import circuits, port_fast_test_config
 from tests.test_torch_prover import one_torch_thread  # noqa: F401
 from tests.test_torch_prover import pin_randomness
-from tests.test_torch_verifier import jax_program
 
 SEED = 0x5EED
 
@@ -201,7 +200,7 @@ def test_conflicting_writes_fail_loudly_on_both_paths(two_writers):
     with pytest.raises(ValueError, match="conflict"):
         generate_partial_witness(pw, td.prover_only, td.common,
                                  rng=random.Random(0))
-    sess = ProverSession(td, program=jax_program(jd.common), device="cpu")
+    sess = ProverSession(td, device="cpu")
     with pytest.raises(ValueError, match="conflict"):
         sess.prove(pw, rng=random.Random(0))
 
@@ -213,7 +212,7 @@ def test_equal_duplicate_writes_prove_through_the_host_engine(
     pin_randomness(monkeypatch, SEED)
     want = jax_serialize(jd.prove(two_writer_inputs(a, b, 2, 2,
                                                     JaxPartialWitness)))
-    sess = ProverSession(td, program=jax_program(jd.common), device="cpu")
+    sess = ProverSession(td, device="cpu")
     stages = Stages()
     proof = sess.prove(two_writer_inputs(a, b, 2, 2), rng=random.Random(SEED),
                        timing=stages)

@@ -50,6 +50,7 @@ PROGRAMS = {
     "random W=16": (lambda: _port_random(16), 64),
     "random W=32": (lambda: _port_random(32), 64),
     "jax random W=16": (lambda: _jax_random(0, 16), 64),
+    "wide (spills K6's shared memory)": (lambda: cp.wide_program(), 16),
 }
 
 
@@ -90,7 +91,8 @@ def _slot_reads(lin):
     return out
 
 
-@pytest.mark.parametrize("name", ["flagship", "random W=16", "fibonacci"])
+@pytest.mark.parametrize("name", ["flagship", "random W=16", "fibonacci",
+                                  "wide (spills K6's shared memory)"])
 def test_every_written_slot_is_read(name):
     """No op writes a dump slot: each op's result (and each kept input) is
     read by a later op before its slot is written again, or is an
@@ -157,3 +159,57 @@ def test_quotient_gathers_only_read_rows():
         np.testing.assert_array_equal(
             to_u64(dq.gather(slice(3, 40), wires, zspp, rows=sub)),
             to_u64(full[:, 3:40][sub]))
+
+
+def _slot_uses(lin):
+    """Reads and writes of each slot over the linear form: every op's
+    destination and slot operands, each kept input's store, each output
+    read from a slot."""
+    f = lin.fields()
+    count = np.zeros(lin.n_slots, dtype=np.int64)
+    for k, reads in enumerate(_slot_reads(lin)):
+        for s in reads + [int(f["dst"][k])]:
+            count[s] += 1
+    for s in lin.input_slot.tolist():
+        if s >= 0:
+            count[s] += 1
+    for o in lin.out_operands.tolist():
+        if not o & cp.OPERAND_INPUT:
+            count[o] += 1
+    return count
+
+
+@pytest.mark.parametrize("name", ["flagship", "fibonacci",
+                                  "wide (spills K6's shared memory)"])
+def test_slots_are_numbered_busiest_first(name):
+    """K6 keeps the lowest-numbered slots in shared memory when they do
+    not all fit: linearize numbers them by use, most used first."""
+    count = _slot_uses(cp.linearize(PROGRAMS[name][0]()))
+    assert (np.diff(count) <= 0).all()
+    assert count.min() >= 2               # a slot is written and read
+
+
+def test_k6_forms():
+    """The flagship program runs 128 lanes a block, every slot in shared
+    memory; a wide program (1,452 slots, PERF.md) 32 lanes a block, 907
+    slots in shared memory and the rest spilled; a bank larger than half
+    of shared memory stays in device memory."""
+    from plonky2_tpu_torch.plonk.constraint_program_cuda import (MAX_SHARED,
+                                                                 k6_form)
+    flag = cp.linearize(_flagship())
+    f = k6_form(flag.n_slots, 857)
+    assert (f.lanes, f.n_shared, f.n_spilled, f.bank_words) == (
+        128, flag.n_slots, 0, 857)
+    assert f.shared_bytes <= MAX_SHARED and f.blocks_per_sm() == 1
+    assert k6_form(596, 872).lanes == 32 and k6_form(596, 872).n_spilled == 0
+    assert k6_form(300, 872).lanes == 64
+    wide = cp.wide_program()
+    lin = cp.linearize(wide)
+    assert lin.n_slots >= 1200
+    f = k6_form(lin.n_slots, len(wide.bank_sids))
+    assert (f.lanes, f.n_shared) == (32, (MAX_SHARED // 8 - 4) // 32)
+    assert f.n_spilled == lin.n_slots - f.n_shared > 0
+    assert f.shared_bytes <= MAX_SHARED
+    big = k6_form(100, 28000)             # the bank does not fit beside
+    assert (big.lanes, big.bank_words, big.n_shared, big.n_spilled) == (
+        32, 0, 100, 0)

@@ -3,6 +3,10 @@
 - The committed flagship program (plonky2_tpu_torch/plonk/programs/
   hash_tree_wide_ecc.npz) equals what the JAX compiler emits for the
   flagship circuit; ``write_flagship_program`` regenerates it.
+- ``write_standard_reference`` writes the JAX build of the hash tree
+  under standard_recursion_config at 2^10 leaves
+  (hash_tree_standard_k10.json), which tests/test_torch_circuit_builder.py
+  holds the port's build against.
 - ``scalar_bank`` and ``run_plain`` (the plain version of kernel K6) equal
   the JAX package's scalar bank, ``run_numpy``, ``jax_chunk_runner`` and the
   Pallas kernel in interpret mode, on the fibonacci circuit's quotient
@@ -49,6 +53,9 @@ FLAGSHIP_NPZ = os.path.join(REPO, "plonky2_tpu_torch", "plonk", "programs",
                             "hash_tree_wide_ecc.npz")
 FLAGSHIP_JSON = os.path.join(REPO, "plonky2_tpu_torch", "plonk", "programs",
                              "hash_tree_wide_ecc_k17.json")
+STANDARD_JSON = os.path.join(REPO, "plonky2_tpu_torch", "plonk", "programs",
+                             "hash_tree_standard_k10.json")
+STANDARD_REF_LOG2_LEAVES = 10
 BOUNDARY = np.array([0, 1, (1 << 32) - 1, 1 << 32, P - 1], dtype=np.uint64)
 
 
@@ -105,6 +112,33 @@ def write_flagship_reference(path: str = FLAGSHIP_JSON):
             write_flagship_reference as w; w()"
     """
     refs = flagship_pickle()[1]
+    with open(path, "w") as f:
+        json.dump(refs, f, indent=1)
+        f.write("\n")
+    return refs
+
+
+def write_standard_reference(path: str = STANDARD_JSON):
+    """Regenerate the committed reference values of the hash tree of
+    2^STANDARD_REF_LOG2_LEAVES leaves (numpy seed 0) under
+    standard_recursion_config, built by the JAX package (~16 s on a CPU),
+    which chip_smoke.py holds the port's build on the card against:
+
+        JAX_PLATFORMS=cpu python -c "from tests.test_torch_quotient import \\
+            write_standard_reference as w; w()"
+    """
+    from plonky2_tpu.models.hash_tree import build_hash_tree_circuit
+    from plonky2_tpu.plonk.config import CircuitConfig
+    data, _, root = build_hash_tree_circuit(
+        CircuitConfig.standard_recursion_config(), STANDARD_REF_LOG2_LEAVES)
+    ints = lambda a: [int(x) for x in np.asarray(  # noqa: E731
+        a, dtype=np.uint64).reshape(-1)]
+    refs = {"log2_leaves": STANDARD_REF_LOG2_LEAVES,
+            "degree_bits": int(data.common.degree_bits()),
+            "circuit_digest": ints(data.prover_only.circuit_digest),
+            "constants_sigmas_cap": [ints(d) for d in data.verifier_only
+                                     .constants_sigmas_cap.digests],
+            "root": ints(root)}
     with open(path, "w") as f:
         json.dump(refs, f, indent=1)
         f.write("\n")

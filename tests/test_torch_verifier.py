@@ -37,12 +37,6 @@ SEED = 0x5EED
 CASES = [("hash_tree", 5), ("fibonacci", 99)]
 
 
-def jax_program(common):
-    from plonky2_tpu.plonk.quotient_program import build_quotient_program
-    from plonky2_tpu_torch.plonk import constraint_program as cp
-    return cp.program_from_arrays(build_quotient_program(common))
-
-
 @functools.lru_cache(maxsize=None)
 def proofs(name: str, size: int):
     """(JAX proof bytes, the port's proof bytes) of one circuit, each
@@ -51,8 +45,7 @@ def proofs(name: str, size: int):
     with pytest.MonkeyPatch.context() as mp:
         pin_randomness(mp, SEED)
         jax_bytes = jax_serialize(jd.prove(jpw))
-    program = None if name == "hash_tree" else jax_program(jd.common)
-    sess = ProverSession(td, program=program, device="cpu")
+    sess = ProverSession(td, device="cpu")
     port_bytes = serialize_proof(sess.prove(tpw, rng=random.Random(SEED)))
     return jax_bytes, port_bytes
 
