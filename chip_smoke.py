@@ -45,12 +45,25 @@ whole proof after the witness:
   recursion set, 2^12 rows, standard_recursion_config), whose witness the
   host engine generates (the device plan refuses it), proved and
   verified, every proof the pinned GATE_MIX_PROOF_SHA256 of the port's
-  CPU proof.
+  CPU proof;
+* the four-table EVM proof (phase 9e, evm/prover.py:prove_all): 640
+  Keccak sponge operations (evm/workload.py), their keccak, sponge, logic
+  and memory tables (2,481 x 2^14, 414 x 2^10, 523 x 2^12, 21 x 2^16)
+  joined by live cross-table lookups, each table's quotient program
+  compiled once and run on K6, under StarkConfig.standard_fast_config();
+  proved cold and warm (every proof the pinned EVM_PROOF_SHA256),
+  verified once by the port's verifier, which rejects a copy with one
+  opened value flipped; then the tests' two sponge ops, whose proof on
+  the card equals the port's CPU proof (EVM_SMALL_PROOF_SHA256, which the
+  CPU tests hold equal to the JAX package's);
+* the Fibonacci STARK at 2^20 rows (phase 9f, stark/prover.py:prove, its
+  permutation argument included), proved cold and warm and verified.
 
 The script builds the kernels from csrc/ with nvcc (one process per
 source, in parallel), holds each kernel, in each of its forms (K3 and K5
 down the columns and along the rows; K6 on the flagship's program, the
-gate mix's and one of more slots than shared memory holds), against its
+gate mix's, one of more slots than shared memory holds and the EVM keccak
+table's), against its
 plain PyTorch version on the card (exact equality: integer arithmetic,
 tolerance 0), runs each path
 at full width with its launch counts set to 0 just before and read just
@@ -134,6 +147,26 @@ GATE_MIX_COPIES = 290
 GATE_MIX_LOG_N = 12
 GATE_MIX_PROOF_SHA256 = ("1f94b80e3c312d204db6d8818a62b17e0046440661a748d670c"
                          "3d854683ca01d")
+# The four-table EVM proof (phase 9e): EVM_OPS Keccak sponge operations
+# of plonky2_tpu_torch/evm/workload.py:sponge_ops (numpy seed 0), keccak
+# 2,481 x 2^14, sponge 414 x 2^10, logic 523 x 2^12, memory 21 x 2^16,
+# under StarkConfig.standard_fast_config(); every proof this one
+EVM_OPS = 640
+EVM_LOG_ROWS = (14, 10, 12, 16)
+EVM_PROOF_SHA256 = ("da4a0ff13091ddfbc229f8906d97b56621179447b358416117"
+                    "884e18ce72e68e")
+# the tests' two sponge ops under tests/test_stark.py:make_config: the
+# port's CPU proof, which tests/test_torch_evm.py holds equal to the JAX
+# package's and pins to the same digest
+EVM_SMALL_PROOF_SHA256 = ("9eca99ad915b77371d03b13fb57f0ec47f24adc58ac417c47"
+                          "96b69e4faa13857")
+# the Fibonacci STARK (phase 9f) at 2^FIB_LOG_N rows under
+# standard_fast_config, from x0 = 0, x1 = 1
+FIB_LOG_N = 20
+FIB_PROOF_SHA256 = ("5be337084bbc260f2a58397f493863fa7112977d7a9bafef41"
+                    "ab125b40249534")
+# the TPU kernels each STARK path must launch (K4 and K7 where they do)
+STARK_KEYS = ("K1", "K2", "K3", "K5", "K6", "K8", "K9")
 FLAGSHIP_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "plonky2_tpu_torch", "plonk", "programs",
                             "hash_tree_wide_ecc_k17.json")
@@ -787,12 +820,28 @@ def gate_mix_program():
     return build_quotient_program(data.common)
 
 
+def keccak_table_program():
+    """The keccak table's quotient program (evm/keccak_stark.py's eval,
+    then its checks of the one CTL it is looked up by) under
+    standard_fast_config, compiled apart from phase 9e's."""
+    from plonky2_tpu_torch.evm import all_stark
+    from plonky2_tpu_torch.evm.cross_table_lookup import ctl_zs_layout
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.quotient_program import build_stark_program
+    config = StarkConfig.standard_fast_config()
+    return build_stark_program(
+        all_stark.KeccakStark(), config,
+        ctl_zs_layout(all_stark.all_cross_table_lookups(), all_stark.KECCAK,
+                      config.num_challenges))
+
+
 def k6_programs(dev, rng, compare) -> dict:
-    """K6 on three programs, each held against run_plain (exact) and
+    """K6 on four programs, each held against run_plain (exact) and
     timed at K6_TIMING_LANES lanes (CUDA events, the median of 3 launches
-    after a warm-up): the flagship's, the gate mix's and a program of
-    more slots than shared memory holds at 32 lanes a block
-    (constraint_program.py:wide_program).  Per program its form (lanes a
+    after a warm-up): the flagship's, the gate mix's, a program of more
+    slots than shared memory holds at 32 lanes a block
+    (constraint_program.py:wide_program) and the EVM keccak table's
+    (about 29,000 ops).  Per program its form (lanes a
     block, slots in shared memory and spilled), ms a launch and ns a
     lane."""
     from plonky2_tpu_torch.field.convert import from_u64
@@ -801,7 +850,8 @@ def k6_programs(dev, rng, compare) -> dict:
     from plonky2_tpu_torch.plonk import constraint_program_cuda as cpc
     progs = {"flagship": flagship_program()[0],
              "gate mix": gate_mix_program(),
-             "wide": cp.wide_program()}
+             "wide": cp.wide_program(),
+             "keccak table": keccak_table_program()}
     out = {}
     for name, prog in progs.items():
         lin = cp.linearize(prog)
@@ -1171,6 +1221,8 @@ def timed_path(run, path, label, keep=lambda out: None):
 def pow_witness_of(result):
     """The proof-of-work witness of a path's result (an opening round's
     (openings, FriProof), a proof), or None where it has none."""
+    if hasattr(result, "stark_proofs"):         # a multi-table proof
+        return [p.opening_proof.pow_witness for p in result.stark_proofs]
     for obj in result if isinstance(result, tuple) else (result,):
         while obj is not None:
             if hasattr(obj, "pow_witness"):
@@ -1181,11 +1233,16 @@ def pow_witness_of(result):
 
 def path_cost(records, pow_witness=None) -> dict:
     """C entry -> [bytes, int32 multiplies, float64 multiply-adds] summed
-    over the launches recorded in one run."""
+    over the launches recorded in one run.  `pow_witness` is a list where
+    the run grinds more than once (one for each K8 launch, in order)."""
     cost = {}
+    witnesses = iter(pow_witness if isinstance(pow_witness, list) else ())
     for name, args, _, _ in records:
         c = cost.setdefault(name, [0, 0, 0])
-        for j, x in enumerate(launch_cost(name, args, pow_witness)):
+        w = pow_witness
+        if isinstance(pow_witness, list):
+            w = next(witnesses) if name == "plk_pow_grind" else None
+        for j, x in enumerate(launch_cost(name, args, w)):
             c[j] += x
     return cost
 
@@ -1715,21 +1772,6 @@ def fri_path(path: str, counts: dict):
         tdp.device_fri_proof, tdp._HostCopy.get = orig, orig_get
 
 
-def proof_words(obj):
-    """Every number of a proof (dataclasses, lists, arrays), in order."""
-    import dataclasses
-    if dataclasses.is_dataclass(obj):
-        for f in dataclasses.fields(obj):
-            yield from proof_words(getattr(obj, f.name))
-    elif isinstance(obj, (list, tuple)):
-        for x in obj:
-            yield from proof_words(x)
-    elif isinstance(obj, np.ndarray):
-        yield from (int(v) for v in obj.reshape(-1))
-    else:
-        yield int(obj)
-
-
 def phase_opening_round(dev, full, quot):
     """The opening round at full width on the two rounds' commitments: the
     transcript after the quotient round observes the quotient cap, draws
@@ -1739,6 +1781,7 @@ def phase_opening_round(dev, full, quot):
     one, one traced run, then the checks."""
     import copy
     from plonky2_tpu_torch.plonk.prover import opening_round
+    from plonky2_tpu_torch.utils.serialization import proof_words
     data, out = quot["data"], quot["out"]
     fp = data.fri_params
     check(set(fp.reduction_arity_bits) == {ARITY_BITS}
@@ -1997,6 +2040,7 @@ def phase_prove(dev, full, quot, opening):
     and its query paths verify."""
     import torch
     from plonky2_tpu_torch.plonk.prover import ProverContext, prove
+    from plonky2_tpu_torch.utils.serialization import proof_words
     data, values = quot["data"], full["values"]
     note_program(data.program, dev)
     t = time.perf_counter()
@@ -2038,6 +2082,7 @@ def phase_reduced(dev, rng):
     import dataclasses
     from plonky2_tpu_torch.field.goldilocks import P
     from plonky2_tpu_torch.plonk.prover import prove
+    from plonky2_tpu_torch.utils.serialization import proof_words
     prog, shape = flagship_program()
     shape = dataclasses.replace(shape, degree_bits=REDUCED_LOG_N)
     n = shape.degree
@@ -2446,6 +2491,199 @@ def phase_gate_mix(dev) -> dict:
     return res
 
 
+def prove_stark_path(label, prove, keys, want_sha) -> tuple:
+    """A STARK path's proof, `prove(timing)`: one cold run (launch counts
+    set to 0 just before and read just after; each TPU kernel of `keys`
+    launched in some form) and WARM_RUNS warm runs (timed per kernel),
+    every proof's sha256 over its proof_words the pinned `want_sha`; then
+    one traced warm run for the idle share.  Returns (the path's numbers,
+    the last proof)."""
+    import torch
+    from plonky2_tpu_torch.utils.serialization import proof_sha256
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    runs, recs = [], None
+    for i in range(1 + WARM_RUNS):
+        timer = StageTimer()
+        with contextlib.ExitStack() as stack:
+            rec = stack.enter_context(KernelRecorder()) if i else None
+            t = time.perf_counter()
+            proof = prove(timer)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        if not i:
+            launches = read_launch_counts()
+            for key in keys:
+                check(any(launches[e] for e, v in KERNELS.items()
+                          if v[0] == key), f"{key} was not launched on the "
+                      f"{label}")
+        else:
+            recs = rec.records
+        runs.append({"wall_s": wall, "stages_ms": timer.ms,
+                     "sha256": proof_sha256(proof),
+                     "kernel_ms": rec.ms_by_kernel() if rec else None})
+        log(f"  {label} prove {'cold' if not i else 'warm'}: {wall:.4f} s; "
+            f"proof sha256 {runs[-1]['sha256']}")
+    peak = torch.cuda.max_memory_allocated()
+    log_stages(timer, runs[-1]["wall_s"])
+    log(f"  {label}: peak max_memory_allocated {peak / 2**30:.3f} GiB; "
+        f"launches {launches}")
+    profile = profile_run(lambda: prove(None))
+    shas = {r["sha256"] for r in runs}
+    check(shas == {want_sha}, f"the {label}'s proofs ({shas}) are not the "
+          f"pinned {want_sha}")
+    log(f"  every {label} proof's sha256 is the pinned {want_sha}")
+    warm = runs[1:]
+    kernel_ms = {k: float(np.median([r["kernel_ms"].get(k, 0.0)
+                                     for r in warm]))
+                 for k in warm[-1]["kernel_ms"]}
+    for r in runs:
+        del r["kernel_ms"]
+    return ({"cold_s": runs[0]["wall_s"],
+             "warm_s": [r["wall_s"] for r in warm], "launches": launches,
+             "kernel_ms": kernel_ms,
+             "cost": path_cost(recs, pow_witness_of(proof)),
+             "peak_bytes": peak, "runs": runs, "profile": profile}, proof)
+
+
+def stark_programs_line(programs, names, compile_s) -> dict:
+    """Each compiled program's size and K6 form."""
+    from plonky2_tpu_torch.plonk import constraint_program as cp
+    from plonky2_tpu_torch.plonk.constraint_program_cuda import k6_form
+    out = {}
+    for name, prog, sec in zip(names, programs, compile_s):
+        lin = cp.linearize(prog)
+        form = k6_form(lin.n_slots, max(1, len(prog.bank_sids)))
+        out[name] = {"ops": lin.n_ops, "slots": lin.n_slots,
+                     "input_rows": lin.n_read, "bank": len(prog.bank_sids),
+                     "lanes": form.lanes, "n_shared": form.n_shared,
+                     "n_spilled": form.n_spilled, "compile_s": sec}
+        log(f"  {name} program: {lin.n_ops} ops, {lin.n_slots} slots, "
+            f"{lin.n_read} input rows, bank {len(prog.bank_sids)}; K6 "
+            f"{form.lanes} lanes a block, {form.n_shared} slots in shared "
+            f"memory, {form.n_spilled} spilled; compiled (traced, "
+            f"scheduled, linearized) in {sec:.2f} s")
+    return out
+
+
+def phase_evm(dev) -> dict:
+    """The four-table EVM proof (keccak, sponge, logic, memory with live
+    CTLs) of EVM_OPS sponge operations under standard_fast_config: the
+    port's trace generators, each table's quotient program compiled once,
+    prove_all cold and warm (every proof the pinned EVM_PROOF_SHA256),
+    the port's verifier on one proof and on a copy with one opened value
+    flipped; then the tests' two sponge ops under their small config,
+    whose proof must equal the port's CPU proof (EVM_SMALL_PROOF_SHA256,
+    which tests/test_torch_evm.py holds equal to the JAX package's)."""
+    import copy
+    import torch
+    from plonky2_tpu_torch.evm import all_stark, workload
+    from plonky2_tpu_torch.evm.prover import prove_all
+    from plonky2_tpu_torch.evm.verifier import verify_all_proof
+    from plonky2_tpu_torch.fri.config import (FriConfig,
+                                              FriReductionStrategy)
+    from plonky2_tpu_torch.plonk.constraint_program import linearize
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.utils.serialization import proof_sha256
+    config = StarkConfig.standard_fast_config()
+    t = time.perf_counter()
+    ops = workload.sponge_ops(EVM_OPS, seed=SEED)
+    traces = all_stark.generate_all_traces(ops)
+    gen_s = time.perf_counter() - t
+    shapes = [tuple(x.shape) for x in traces]
+    check([r.bit_length() - 1 for _, r in shapes] == list(EVM_LOG_ROWS),
+          f"EVM table shapes {shapes}")
+    log(f"  traces of {EVM_OPS} sponge ops generated on the host in "
+        f"{gen_s:.3f} s: {shapes} (keccak, sponge, logic, memory)")
+    stark = all_stark.make_all_stark()
+    names = [type(x).__name__ for x in stark.starks]
+    compile_s = []
+    for i in range(len(stark.starks)):
+        t = time.perf_counter()
+        prog = stark.programs(config)[i]
+        linearize(prog)
+        compile_s.append(time.perf_counter() - t)
+    programs = stark.programs(config)
+    prog_line = stark_programs_line(programs, names, compile_s)
+    for prog in programs:
+        note_program(prog, dev)
+    res, proof = prove_stark_path(
+        f"EVM proof ({EVM_OPS} ops)",
+        lambda timing: prove_all(stark, config, traces, timing=timing),
+        STARK_KEYS, EVM_PROOF_SHA256)
+    t = time.perf_counter()
+    verify_all_proof(stark, proof, config)
+    verify_s = time.perf_counter() - t
+    log(f"  the port's verifier accepts the proof in {verify_s:.2f} s")
+    bad = copy.deepcopy(proof)
+    bad.stark_proofs[0].openings.local_values[0][0] ^= np.uint64(1)
+    try:
+        verify_all_proof(stark, bad, config)
+        rejected = None
+    except Exception as e:      # the verifiers raise several kinds
+        rejected = f"{type(e).__name__}: {e}"
+    check(rejected is not None, "the port's verifier accepted a proof "
+          "with a flipped opened value")
+    log(f"  ... and rejects it with one opened value flipped ({rejected})")
+    del proof, bad, traces
+    torch.cuda.empty_cache()
+
+    small_config = StarkConfig(
+        security_bits=1, num_challenges=2,
+        fri_config=FriConfig(
+            rate_bits=1, cap_height=2, proof_of_work_bits=8,
+            reduction_strategy=FriReductionStrategy.ConstantArityBits(2, 4),
+            num_query_rounds=12))
+    small = prove_all(stark, small_config, all_stark.generate_all_traces(
+        workload.small_sponge_ops()))
+    sha = proof_sha256(small)
+    check(sha == EVM_SMALL_PROOF_SHA256, f"the card's proof of the tests' "
+          f"sponge ops ({sha}) is not the port's CPU proof "
+          f"{EVM_SMALL_PROOF_SHA256}")
+    log(f"  the tests' two sponge ops under their small config: the card's "
+        f"proof equals the port's CPU proof (sha256 {sha}), which the CPU "
+        "tests hold equal to the JAX package's")
+    res.update(trace_gen_s=gen_s, shapes=shapes, programs=prog_line,
+               verify_s=verify_s)
+    return res
+
+
+def phase_fib_stark(dev) -> dict:
+    """The Fibonacci STARK at 2^FIB_LOG_N rows, its permutation argument
+    included, under standard_fast_config: proved cold and warm (every
+    proof the pinned FIB_PROOF_SHA256) and verified once."""
+    from plonky2_tpu_torch.models.fibonacci_stark import FibonacciStark
+    from plonky2_tpu_torch.plonk.constraint_program import linearize
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.prover import prove
+    from plonky2_tpu_torch.stark.quotient_program import stark_program
+    from plonky2_tpu_torch.stark.verifier import verify_stark_proof
+    config = StarkConfig.standard_fast_config()
+    stark = FibonacciStark(1 << FIB_LOG_N)
+    t = time.perf_counter()
+    trace = stark.generate_trace(0, 1)
+    pis = [0, 1, stark.expected_result(0, 1)]
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    prog = stark_program(stark, config)
+    linearize(prog)
+    prog_line = stark_programs_line([prog], ["FibonacciStark"],
+                                    [time.perf_counter() - t])
+    note_program(prog, dev)
+    log(f"  trace (4 x 2^{FIB_LOG_N}) and expected result in {gen_s:.3f} s")
+    res, proof = prove_stark_path(
+        f"Fibonacci STARK (2^{FIB_LOG_N} rows)",
+        lambda timing: prove(stark, config, trace, pis, timing=timing),
+        STARK_KEYS, FIB_PROOF_SHA256)
+    t = time.perf_counter()
+    verify_stark_proof(stark, proof, config)
+    verify_s = time.perf_counter() - t
+    log(f"  the port's verifier accepts the proof in {verify_s:.2f} s")
+    res.update(trace_gen_s=gen_s, programs=prog_line, verify_s=verify_s)
+    return res
+
+
 def check_plan_witness(sess, pw, dev) -> dict:
     """The session's kept witness plan against the host engine
     (iop/generator.py) on one random.Random(0) stream: the same
@@ -2671,6 +2909,15 @@ def main() -> int:
     with phase(f"9d the gate mix at 2^{GATE_MIX_LOG_N} rows (every gate of "
                "the recursion set, host witness), proved and verified"):
         paths["gate_mix"] = phase_gate_mix(dev)
+    torch.cuda.empty_cache()
+    with phase(f"9e the four-table EVM proof ({EVM_OPS} sponge ops: keccak, "
+               "sponge, logic, memory with live CTLs), proved and "
+               "verified"):
+        paths["evm"] = phase_evm(dev)
+    torch.cuda.empty_cache()
+    with phase(f"9f the Fibonacci STARK at 2^{FIB_LOG_N} rows, proved and "
+               "verified"):
+        paths["fib_stark"] = phase_fib_stark(dev)
     with phase("10 kernels line"):
         line = kernels_line(kern, paths, smi, waves)
         line["narrow_levels"] = narrow
@@ -2685,7 +2932,8 @@ def main() -> int:
                       "runs", "session_s", "generators", "host_rss_gib",
                       "plan_check", "grind", "k7_waves", "fri_paths",
                       "k8_record", "compile_ms", "k6_form", "build_s",
-                      "build_stages_ms", "gates", "n_gates"):
+                      "build_stages_ms", "gates", "n_gates", "trace_gen_s",
+                      "shapes", "programs", "verify_s"):
                 if f in p:
                     line["paths"][k][f] = p[f]
     with phase("11 int32 multiply rate and field-product SASS"):

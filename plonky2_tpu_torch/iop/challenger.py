@@ -79,6 +79,15 @@ class Challenger:
         state[:len(self.input_buffer)] = self.input_buffer
         return state
 
+    def compact(self) -> List[int]:
+        """Absorb the pending inputs and drop the buffered outputs, so the
+        transcript goes on from the sponge state alone (JAX
+        iop/challenger.py:84); returns that state."""
+        if self.input_buffer:
+            self._duplexing()
+        self.output_buffer.clear()
+        return list(self.sponge_state)
+
     def _duplexing(self) -> None:
         if len(self.input_buffer) > pos.SPONGE_RATE:
             raise RuntimeError("input buffer beyond the sponge rate")

@@ -68,15 +68,21 @@ def inverse_rows(x: torch.Tensor) -> torch.Tensor:
     return torch.where(zero, torch.zeros_like(x), torch.stack(out))
 
 
-def exclusive_prefix_product(x: torch.Tensor) -> torch.Tensor:
-    """z[0] = 1, z[j] = x[0] * ... * x[j-1] over the last axis, by
-    log-step doubling."""
+def inclusive_prefix_product(x: torch.Tensor) -> torch.Tensor:
+    """z[j] = x[0] * ... * x[j] over the last axis, by log-step
+    doubling."""
     inc = x
     d = 1
     while d < x.shape[-1]:
         inc = torch.cat([inc[..., :d], gf.mul(inc[..., d:], inc[..., :-d])],
                         dim=-1)
         d *= 2
+    return inc
+
+
+def exclusive_prefix_product(x: torch.Tensor) -> torch.Tensor:
+    """z[0] = 1, z[j] = x[0] * ... * x[j-1] over the last axis."""
+    inc = inclusive_prefix_product(x)
     return torch.cat([torch.ones_like(x[..., :1]), inc[..., :-1]], dim=-1)
 
 

@@ -655,7 +655,7 @@ def _vector_operands(op) -> tuple:
     return tuple(dict.fromkeys(vals))          # distinct, in operand order
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=32)
 def linearize(prog: ConstraintProgram) -> LinearProgram:
     """The wave program as a straight stream of its real ops, for kernel K6.
 
@@ -698,33 +698,62 @@ def linearize(prog: ConstraintProgram) -> LinearProgram:
             readers.setdefault(v, []).append(k)
 
     in_slot = set()
+    vreaders = {}         # value -> the ops that read it
+    for k in order_in:
+        for v in operands[k]:
+            vreaders.setdefault(v, []).append(k)
+
+    def term(v):
+        if v in in_slot:
+            return -(remaining[v] == 1)
+        return int(remaining[v] > 1)        # an input read first, kept
 
     def delta(k):
-        d = 1
-        for v in operands[k]:
-            if v in in_slot:
-                d -= remaining[v] == 1
-            elif remaining[v] > 1:           # an input read first, kept
-                d += 1
-        return d
+        return 1 + sum(term(v) for v in operands[k])
 
-    ready = {k for k in order_in if pending[k] == 0}
+    # the ready op of least (delta, -j) from a heap; an entry whose delta is
+    # no longer the op's is stale and skipped, and an op's delta is pushed
+    # anew whenever the term of one of its operands changes
+    ready = set()
+    key = {}
+    heap = []
+
+    def push(k):
+        key[k] = delta(k)
+        heapq.heappush(heap, (key[k], -k))
+
+    for k in order_in:
+        if pending[k] == 0:
+            ready.add(k)
+            push(k)
     schedule = []
-    while ready:
-        k = min(ready, key=lambda j: (delta(j), -j))
+    while heap:
+        d, negk = heapq.heappop(heap)
+        k = -negk
+        if k not in ready or key[k] != d:
+            continue
         ready.remove(k)
         schedule.append(k)
+        changed = []
         for v in operands[k]:
+            before = term(v) if remaining[v] else None
             remaining[v] -= 1
             if remaining[v] and v < n_in:
                 in_slot.add(v)
             elif not remaining[v]:
                 in_slot.discard(v)
+            if remaining[v] and term(v) != before:
+                changed.append(v)
         in_slot.add(n_in + k)
+        for v in changed:
+            for j in vreaders[v]:
+                if j in ready:
+                    push(j)
         for j in readers.get(n_in + k, ()):
             pending[j] -= 1
             if pending[j] == 0:
                 ready.add(j)
+                push(j)
 
     # slots, in schedule order
     uses = {}

@@ -63,7 +63,7 @@ def k6_form(n_slots: int, bank_size: int) -> K6Form:
                   bank_words)
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=32)
 def device_program(prog: ConstraintProgram, device: str):
     """(ops (n_ops,) int64, input_slot (n_read,) int32, out_operands
     (n_outputs,) int32) of the program's linear form, on `device`."""

@@ -103,6 +103,28 @@ def domain_columns(shape, device) -> torch.Tensor:
     return torch.stack([xs, l_0, zh_inv])
 
 
+def gather_rows(sources, rows: np.ndarray,
+                out: torch.Tensor) -> torch.Tensor:
+    """Rows `rows` (sorted) of the inputs that `sources` stack, written
+    into `out`: each source is (leaves, its row count, the leaf columns
+    to take, or None for a matrix taken as it is).  One index_select a run
+    of consecutive rows."""
+    start = pos = 0
+    for src, n, idx in sources:
+        local = rows[(rows >= start) & (rows < start + n)] - start
+        for run in (np.split(local, np.flatnonzero(np.diff(local) != 1) + 1)
+                    if local.size else ()):
+            r0, k = int(run[0]), len(run)
+            if idx is None:
+                out[pos:pos + k] = src[r0:r0 + k]
+            else:
+                torch.index_select(src[r0:r0 + k], 1, idx,
+                                   out=out[pos:pos + k])
+            pos += k
+        start += n
+    return out
+
+
 class DeviceQuotient:
     """Per-circuit quotient context: the program, the resident cs leaves,
     the gather indices and the domain columns, made once and reused by
@@ -159,25 +181,10 @@ class DeviceQuotient:
                               device=self.device)
         n_pre, n_wires, n_zspp, nch = self.n_cols
         z_leaves = zspp_batch.leaves_dev
-        dom = self.dom[:, lanes]
-        start = pos = 0
-        for src, n, idx in ((self.cs_leaves, n_pre, inat),
+        return gather_rows(((self.cs_leaves, n_pre, inat),
                             (wires_batch.leaves_dev, n_wires, inat),
-                            (z_leaves, n_zspp, inat),
-                            (z_leaves, nch, inext), (dom, 3, None)):
-            local = rows[(rows >= start) & (rows < start + n)] - start
-            # one index_select per run of consecutive rows
-            for run in np.split(local, np.flatnonzero(np.diff(local) != 1)
-                                + 1) if local.size else ():
-                r0, k = int(run[0]), len(run)
-                if idx is None:
-                    out[pos:pos + k] = src[r0:r0 + k]
-                else:
-                    torch.index_select(src[r0:r0 + k], 1, idx,
-                                       out=out[pos:pos + k])
-                pos += k
-            start += n
-        return out
+                            (z_leaves, n_zspp, inat), (z_leaves, nch, inext),
+                            (self.dom[:, lanes], 3, None)), rows, out)
 
     def scalar_bank(self, public_inputs_hash, betas, gammas,
                     alphas) -> torch.Tensor:

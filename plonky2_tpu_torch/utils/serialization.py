@@ -183,3 +183,54 @@ def deserialize_proof(data: bytes, common) -> ProofWithPublicInputs:
     if buf.pos != len(buf.data):
         raise ValueError("trailing bytes in proof")
     return out
+
+
+def proof_to_plain(obj):
+    """A proof's dataclass tree as (skeleton, arrays): the skeleton is
+    JSON-ready (dataclasses as {"class", "fields"}, lists, tuples as
+    {"tuple": [...]}, ints, None) and every numpy array is replaced by
+    {"array": i}, an index into `arrays` (uint64).  Field names are the
+    JAX package's, so a reader can rebuild its classes."""
+    import dataclasses
+    arrays = []
+
+    def walk(x):
+        if dataclasses.is_dataclass(x):
+            return {"class": type(x).__name__,
+                    "fields": {f.name: walk(getattr(x, f.name))
+                               for f in dataclasses.fields(x)}}
+        if isinstance(x, tuple):
+            return {"tuple": [walk(v) for v in x]}
+        if isinstance(x, list):
+            return [walk(v) for v in x]
+        if isinstance(x, np.ndarray):
+            arrays.append(np.asarray(x, dtype=np.uint64))
+            return {"array": len(arrays) - 1}
+        if x is None:
+            return None
+        return int(x)
+
+    return walk(obj), arrays
+
+
+def proof_words(obj):
+    """Every number of a proof's dataclass tree (lists, tuples, arrays,
+    ints), in order; None fields are skipped."""
+    import dataclasses
+    if dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from proof_words(getattr(obj, f.name))
+    elif isinstance(obj, (list, tuple)):
+        for x in obj:
+            yield from proof_words(x)
+    elif isinstance(obj, np.ndarray):
+        yield from (int(v) for v in obj.reshape(-1))
+    elif obj is not None:
+        yield int(obj)
+
+
+def proof_sha256(obj) -> str:
+    """sha256 of ``proof_words`` as little-endian u64s."""
+    import hashlib
+    words = np.array(list(proof_words(obj)), dtype=np.uint64)
+    return hashlib.sha256(words.astype("<u8").tobytes()).hexdigest()

@@ -13,3 +13,15 @@ import contextlib
 class NoopTiming:
     def scope(self, name: str):
         return contextlib.nullcontext()
+
+
+class Prefixed:
+    """A timing whose stage names carry a prefix (one table of a
+    multi-table proof)."""
+
+    def __init__(self, timing, prefix: str):
+        self.timing = timing
+        self.prefix = prefix
+
+    def scope(self, name: str):
+        return self.timing.scope(self.prefix + name)

@@ -271,6 +271,27 @@ def test_constraint_program_kernel_spilling(dev, lanes):
     assert cpc.run_program_cuda.launches == before + 1
 
 
+def test_constraint_program_kernel_keccak_table(dev):
+    """K6 on the EVM keccak table's quotient program (its eval and CTL
+    checks, about 29,000 ops, more slots than shared memory holds at 32
+    lanes) against the plain version."""
+    from plonky2_tpu_torch.evm import all_stark
+    from plonky2_tpu_torch.evm.cross_table_lookup import ctl_zs_layout
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.quotient_program import build_stark_program
+    config = StarkConfig.standard_fast_config()
+    prog = build_stark_program(all_stark.KeccakStark(), config, ctl_zs_layout(
+        all_stark.all_cross_table_lookups(), all_stark.KECCAK, 2))
+    rng = np.random.default_rng(11)
+    inputs = _rand((prog.n_inputs, 4096), 11, dev)
+    inputs[:, :64] = from_u64(BOUNDARY[rng.integers(
+        0, 5, size=(prog.n_inputs, 64))], dev)
+    bank = from_u64(prog.scalar_bank([int(x) for x in rng.integers(
+        0, P, size=prog.n_scalar_inputs, dtype=np.uint64)]), dev)
+    _equal(cpc.run_program_cuda(prog, inputs, bank),
+           prog.run_plain(inputs, bank))
+
+
 def test_constraint_program_kernel_bank_in_device_memory(dev):
     """A bank too large for shared memory beside the slots is read from
     device memory."""

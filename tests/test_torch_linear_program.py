@@ -213,3 +213,71 @@ def test_k6_forms():
     big = k6_form(100, 28000)             # the bank does not fit beside
     assert (big.lanes, big.bank_words, big.n_shared, big.n_spilled) == (
         32, 0, 100, 0)
+
+
+def _gate_mix():
+    from plonky2_tpu_torch.models.gate_mix import build_gate_mix_circuit
+    from plonky2_tpu_torch.plonk.quotient_program import \
+        build_quotient_program
+    data, _, _ = build_gate_mix_circuit(copies=1, device="cpu")
+    return build_quotient_program(data.common)
+
+
+def _keccak_table():
+    """The EVM keccak table's quotient program (eval, then its CTL
+    checks) under standard_fast_config: about 29,000 ops."""
+    from plonky2_tpu_torch.evm import all_stark
+    from plonky2_tpu_torch.evm.cross_table_lookup import ctl_zs_layout
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.quotient_program import build_stark_program
+    config = StarkConfig.standard_fast_config()
+    return build_stark_program(all_stark.KeccakStark(), config, ctl_zs_layout(
+        all_stark.all_cross_table_lookups(), all_stark.KECCAK, 2))
+
+
+def _linear_sha256(lin) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for a in (lin.ops, lin.input_rows, lin.input_slot, lin.out_operands):
+        h.update(np.ascontiguousarray(a).tobytes())
+    h.update(str(lin.n_slots).encode())
+    return h.hexdigest()
+
+
+# the linear forms as the list scheduler made them when it scanned the
+# whole ready set for each pick; the heap that replaced the scan must make
+# the same picks
+LINEAR_FORM_SHA256 = {
+    "flagship": "b2200c5a575fab50786be45dfb4c080f826020b1f6ae3b17090e782dab"
+                "08e76c",
+    "gate mix": "2bbb566d5248ab0fcee8f7dd2af0db66d36ad5ad46eb700f919299d173"
+                "d192e0",
+    "wide": "a18d4caa3f077052bb547c0a45c211f561ece1888c01a117418da0939ed09e"
+            "a6",
+}
+
+
+@pytest.mark.parametrize("name,make", [("flagship", _flagship),
+                                       ("gate mix", _gate_mix),
+                                       ("wide", cp.wide_program)])
+def test_linear_form_is_pinned(name, make):
+    assert _linear_sha256(cp.linearize(make())) == LINEAR_FORM_SHA256[name]
+
+
+def test_keccak_table_linearizes_in_seconds():
+    """The keccak table's program (29,263 ops) linearizes in seconds, and
+    its linear form equals the wave program on random lanes."""
+    import time
+    prog = _keccak_table()
+    t = time.perf_counter()
+    lin = cp.linearize(prog)
+    assert time.perf_counter() - t < 10
+    assert lin.n_ops == 29263 and lin.n_slots <= cp.MAX_SLOTS
+    rng = np.random.default_rng(29)
+    inputs = from_u64(rng.integers(0, P, size=(prog.n_inputs, 48),
+                                   dtype=np.uint64))
+    bank = from_u64(prog.scalar_bank([int(x) for x in rng.integers(
+        0, P, size=prog.n_scalar_inputs, dtype=np.uint64)]))
+    np.testing.assert_array_equal(to_u64(cp.run_plain_linear(lin, inputs,
+                                                             bank)),
+                                  to_u64(prog.run_plain(inputs, bank)))
