@@ -57,13 +57,26 @@ whole proof after the witness:
   the card equals the port's CPU proof (EVM_SMALL_PROOF_SHA256, which the
   CPU tests hold equal to the JAX package's);
 * the Fibonacci STARK at 2^20 rows (phase 9f, stark/prover.py:prove, its
-  permutation argument included), proved cold and warm and verified.
+  permutation argument included), proved cold and warm and verified;
+* System Zero at its 2^16 rows (phase 9g, system_zero/system_zero.py: 558
+  columns, 22 lookups, its program of 7,865 ops on K6) under
+  standard_fast_config, proved cold and warm (pinned
+  SYSTEM_ZERO_PROOF_SHA256), verified, a flipped opening rejected;
+* recursion (phase 9h, models/bench_recursion.py) under
+  standard_recursion_config: the no-op proof of 2^16 rows, the proof that
+  verifies it and the proof that verifies that one (host witness), each
+  through ProverSession cold and warm, verified and pinned
+  (RECURSION_PROOF_SHA256, the port's CPU proofs); the double proof
+  compressed and restored byte for byte; then three links of the cyclic
+  Poseidon hash chain (models/cyclic_hash_chain.py) under the JAX
+  package's test config for it, each verified, its public inputs the
+  iterated host Poseidon.  Phases 9c-9f run EARLIER_WARM_RUNS warm proofs.
 
 The script builds the kernels from csrc/ with nvcc (one process per
 source, in parallel), holds each kernel, in each of its forms (K3 and K5
 down the columns and along the rows; K6 on the flagship's program, the
-gate mix's, one of more slots than shared memory holds and the EVM keccak
-table's), against its
+gate mix's, one of more slots than shared memory holds, the EVM keccak
+table's, System Zero's and the single-recursion circuit's), against its
 plain PyTorch version on the card (exact equality: integer arithmetic,
 tolerance 0), runs each path
 at full width with its launch counts set to 0 just before and read just
@@ -165,6 +178,38 @@ EVM_SMALL_PROOF_SHA256 = ("9eca99ad915b77371d03b13fb57f0ec47f24adc58ac417c47"
 FIB_LOG_N = 20
 FIB_PROOF_SHA256 = ("5be337084bbc260f2a58397f493863fa7112977d7a9bafef41"
                     "ab125b40249534")
+# System Zero (phase 9g) at its MIN_TRACE_ROWS = 2^16 rows (558 columns)
+# under standard_fast_config, public inputs [0, 0]: the port's CPU proof
+# (scripts/port_system_zero_proof.py --device cpu)
+SYSTEM_ZERO_PROOF_SHA256 = ("4dc1f0cdcbaa16cb3072ad14a55fd0c7f8d4c0b6fad7a"
+                            "44b6e47dbbea17c2873")
+# The recursion chain (phase 9h, models/bench_recursion.py) under
+# standard_recursion_config: the no-op circuit of 2^RECURSION_INNER_LOG
+# rows, the circuit that verifies its proof and the circuit that verifies
+# that one, each proof from random.Random(0); their serialized proofs'
+# sha256 as the port makes them on the CPU (scripts/port_recursion_proof.py
+# --device cpu; scripts/jax_verify_recursion_proof.py checks the double
+# one with the JAX package's builder and verifier)
+RECURSION_INNER_LOG = 16
+RECURSION_PROOF_SHA256 = {
+    "dummy": ("3782b7b6b49b3f93e1870eeb9102e175f885650d13db87854483dd71df"
+              "1317cd"),
+    "single": ("c23b432a14500461c1343e94d0f07e155c9c1a35f2951007819a5dbf33"
+               "56fa99"),
+    "double": ("03f8ab65c73482b3c0c40b1ed27de59d9b15472bda5c7e678024369ce0"
+               "03877d"),
+}
+# the cyclic Poseidon hash chain (models/cyclic_hash_chain.py): its links,
+# under the JAX package's test config (fast_recursion_config; 2^13 rows).
+# Under standard_recursion_config the cycle's constants all fit the spare
+# constant slots of its RandomAccessGate of 4 bits, so its gate set has no
+# ConstantGate, and dummy_circuit refuses the common data (the JAX
+# package's dummy_circuit does the same).
+CYCLIC_STEPS = 3
+CYCLIC_INITIAL = [0, 1, 2, 3]
+# phases 9c-9f run fewer warm proofs than the others, which keeps the
+# whole script inside its time limit since 9g and 9h came
+EARLIER_WARM_RUNS = 1
 # the TPU kernels each STARK path must launch (K4 and K7 where they do)
 STARK_KEYS = ("K1", "K2", "K3", "K5", "K6", "K8", "K9")
 FLAGSHIP_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -176,7 +221,7 @@ STANDARD_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 CHECK_POINTS = 8
 CHUNK_SWEEP = [1 << k for k in range(15, 22)]
 CHECK_LANES = 4096
-K6_TIMING_LANES = 1 << 16       # K6's three programs timed at this width
+K6_TIMING_LANES = 1 << 16       # K6's programs timed at this width
 # K2's narrow top of a 2^21-leaf tree with cap 4: the 11 levels of 2^14
 # down to 16 parents (phase 3b)
 NARROW_LEVELS = 11
@@ -835,15 +880,60 @@ def keccak_table_program():
                       config.num_challenges))
 
 
+def system_zero_program():
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.quotient_program import stark_program
+    from plonky2_tpu_torch.system_zero.system_zero import SystemZero
+    return stark_program(SystemZero(), StarkConfig.standard_fast_config())
+
+
+@functools.lru_cache(maxsize=1)
+def recursion_circuits() -> dict:
+    """The recursion chain's first two circuits under
+    standard_recursion_config, built by the port on the card (the
+    constants-sigmas commitments there): the no-op circuit of
+    2^RECURSION_INNER_LOG rows and the circuit that verifies its proofs,
+    which needs only the first one's common data; each with its build
+    seconds.  Phase 3 runs K6 on the second one's program, phase 9h
+    proves both."""
+    import torch
+    from plonky2_tpu_torch.models import bench_recursion as br
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    config = CircuitConfig.standard_recursion_config()
+    t = time.perf_counter()
+    dummy = br.dummy_circuit_of_size(config, RECURSION_INNER_LOG)
+    torch.cuda.synchronize()
+    dummy_s = time.perf_counter() - t
+    timer = StageTimer()
+    t = time.perf_counter()
+    single, pt, vt = br.recursion_circuit(dummy.common, config,
+                                          timing=timer)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t
+    log(f"  recursion circuits built on the card: the no-op circuit "
+        f"(2^{dummy.common.degree_bits()} rows) in {dummy_s:.3f} s, the "
+        f"circuit verifying its proofs (2^{single.common.degree_bits()} "
+        f"rows) in {single_s:.3f} s")
+    return {"config": config, "dummy": dummy, "dummy_s": dummy_s,
+            "single": (single, pt, vt), "single_s": single_s,
+            "single_stages_ms": timer.ms}
+
+
+def single_recursion_program():
+    from plonky2_tpu_torch.plonk.quotient_program import \
+        build_quotient_program
+    return build_quotient_program(recursion_circuits()["single"][0].common)
+
+
 def k6_programs(dev, rng, compare) -> dict:
-    """K6 on four programs, each held against run_plain (exact) and
+    """K6 on six programs, each held against run_plain (exact) and
     timed at K6_TIMING_LANES lanes (CUDA events, the median of 3 launches
     after a warm-up): the flagship's, the gate mix's, a program of more
     slots than shared memory holds at 32 lanes a block
-    (constraint_program.py:wide_program) and the EVM keccak table's
-    (about 29,000 ops).  Per program its form (lanes a
-    block, slots in shared memory and spilled), ms a launch and ns a
-    lane."""
+    (constraint_program.py:wide_program), the EVM keccak table's (about
+    29,000 ops), System Zero's and the single-recursion circuit's.  Per
+    program its form (lanes a block, slots in shared memory and spilled),
+    ms a launch and ns a lane."""
     from plonky2_tpu_torch.field.convert import from_u64
     from plonky2_tpu_torch.field.goldilocks import P
     from plonky2_tpu_torch.plonk import constraint_program as cp
@@ -851,7 +941,9 @@ def k6_programs(dev, rng, compare) -> dict:
     progs = {"flagship": flagship_program()[0],
              "gate mix": gate_mix_program(),
              "wide": cp.wide_program(),
-             "keccak table": keccak_table_program()}
+             "keccak table": keccak_table_program(),
+             "system zero": system_zero_program(),
+             "single recursion": single_recursion_program()}
     out = {}
     for name, prog in progs.items():
         lin = cp.linearize(prog)
@@ -2314,15 +2406,15 @@ def check_flagship_program(prog) -> None:
 
 
 def prove_session(sess, pw, path, label, want_sha, device_witness,
-                  want_pis=None) -> dict:
+                  want_pis=None, warm_runs=WARM_RUNS) -> tuple:
     """ProverSession.prove of `pw`: one cold run (launch counts set to 0
     just before and read just after; every kernel of `path` launched) and
-    WARM_RUNS warm runs (timed per kernel), each from random.Random(0) and
-    each verified with the port's verifier; every proof's sha256 must be
-    `want_sha`.  The witness comes from the device plan (stage "device
+    `warm_runs` warm runs (timed per kernel), each from random.Random(0)
+    and each verified with the port's verifier; every proof's sha256 must
+    be `want_sha`.  The witness comes from the device plan (stage "device
     witness", K7) when `device_witness`, else from the host engine (stage
-    "witness").  Returns the path's numbers, the traced idle share of one
-    more warm run included."""
+    "witness").  Returns the path's numbers (the traced idle share of one
+    more warm run included) and the proof."""
     import hashlib
     import random
     import torch
@@ -2332,7 +2424,7 @@ def prove_session(sess, pw, path, label, want_sha, device_witness,
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     runs, recs = [], None
-    for i in range(1 + WARM_RUNS):
+    for i in range(1 + warm_runs):
         timer = StageTimer()
         with contextlib.ExitStack() as stack:
             rec = stack.enter_context(KernelRecorder()) if i else None
@@ -2383,7 +2475,7 @@ def prove_session(sess, pw, path, label, want_sha, device_witness,
     return {"cold_s": runs[0]["wall_s"], "warm_s": [r["wall_s"] for r in warm],
             "launches": launches, "kernel_ms": kernel_ms,
             "cost": path_cost(recs, pow_witness_of(proof)),
-            "peak_bytes": peak, "runs": runs, "profile": profile}
+            "peak_bytes": peak, "runs": runs, "profile": profile}, proof
 
 
 def k6_form_of(sess) -> dict:
@@ -2449,7 +2541,8 @@ def phase_standard(dev) -> dict:
     log(f"  quotient program compiled in {timer.ms['quotient program']:.3f}"
         f" ms: {form}")
     res = prove_session(sess, pw, SESSION_PATH, "standard tree",
-                        STANDARD_PROOF_SHA256, True, root)
+                        STANDARD_PROOF_SHA256, True, root,
+                        warm_runs=EARLIER_WARM_RUNS)[0]
     res.update(build_s=build_s, build_stages_ms=build_timer.ms,
                compile_ms=timer.ms["quotient program"], k6_form=form)
     return res
@@ -2485,16 +2578,18 @@ def phase_gate_mix(dev) -> dict:
     log(f"  quotient program compiled in {timer.ms['quotient program']:.3f}"
         f" ms: {form}; the device witness plan refuses the circuit")
     res = prove_session(sess, pw, GATE_MIX_PATH, "gate mix",
-                        GATE_MIX_PROOF_SHA256, False)
+                        GATE_MIX_PROOF_SHA256, False,
+                        warm_runs=EARLIER_WARM_RUNS)[0]
     res.update(build_s=build_s, compile_ms=timer.ms["quotient program"],
                k6_form=form, gates=gates, n_gates=n_gates)
     return res
 
 
-def prove_stark_path(label, prove, keys, want_sha) -> tuple:
+def prove_stark_path(label, prove, keys, want_sha,
+                     warm_runs=WARM_RUNS) -> tuple:
     """A STARK path's proof, `prove(timing)`: one cold run (launch counts
     set to 0 just before and read just after; each TPU kernel of `keys`
-    launched in some form) and WARM_RUNS warm runs (timed per kernel),
+    launched in some form) and `warm_runs` warm runs (timed per kernel),
     every proof's sha256 over its proof_words the pinned `want_sha`; then
     one traced warm run for the idle share.  Returns (the path's numbers,
     the last proof)."""
@@ -2504,7 +2599,7 @@ def prove_stark_path(label, prove, keys, want_sha) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     runs, recs = [], None
-    for i in range(1 + WARM_RUNS):
+    for i in range(1 + warm_runs):
         timer = StageTimer()
         with contextlib.ExitStack() as stack:
             rec = stack.enter_context(KernelRecorder()) if i else None
@@ -2611,7 +2706,7 @@ def phase_evm(dev) -> dict:
     res, proof = prove_stark_path(
         f"EVM proof ({EVM_OPS} ops)",
         lambda timing: prove_all(stark, config, traces, timing=timing),
-        STARK_KEYS, EVM_PROOF_SHA256)
+        STARK_KEYS, EVM_PROOF_SHA256, warm_runs=EARLIER_WARM_RUNS)
     t = time.perf_counter()
     verify_all_proof(stark, proof, config)
     verify_s = time.perf_counter() - t
@@ -2675,12 +2770,205 @@ def phase_fib_stark(dev) -> dict:
     res, proof = prove_stark_path(
         f"Fibonacci STARK (2^{FIB_LOG_N} rows)",
         lambda timing: prove(stark, config, trace, pis, timing=timing),
-        STARK_KEYS, FIB_PROOF_SHA256)
+        STARK_KEYS, FIB_PROOF_SHA256, warm_runs=EARLIER_WARM_RUNS)
     t = time.perf_counter()
     verify_stark_proof(stark, proof, config)
     verify_s = time.perf_counter() - t
     log(f"  the port's verifier accepts the proof in {verify_s:.2f} s")
     res.update(trace_gen_s=gen_s, programs=prog_line, verify_s=verify_s)
+    return res
+
+
+def phase_system_zero(dev) -> dict:
+    """System Zero (system_zero/system_zero.py) at its MIN_TRACE_ROWS =
+    2^16 rows, 558 columns, under standard_fast_config, nothing cut: the
+    trace made on the host, its quotient program compiled (ops, slots,
+    K6 form), proved cold and warm (every proof the pinned
+    SYSTEM_ZERO_PROOF_SHA256, the port's CPU proof), with its stage times
+    (the permutation argument's 44 Z columns in "Z polynomials"), peak
+    memory and traced idle share; verified once by the port's verifier,
+    which rejects a copy with one opened value flipped."""
+    import copy
+    from plonky2_tpu_torch.plonk.constraint_program import linearize
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.prover import prove
+    from plonky2_tpu_torch.stark.quotient_program import stark_program
+    from plonky2_tpu_torch.stark.verifier import verify_stark_proof
+    from plonky2_tpu_torch.system_zero.system_zero import (MIN_TRACE_ROWS,
+                                                           SystemZero)
+    config = StarkConfig.standard_fast_config()
+    stark = SystemZero()
+    t = time.perf_counter()
+    trace = stark.generate_trace()
+    gen_s = time.perf_counter() - t
+    check(trace.shape == (stark.COLUMNS, MIN_TRACE_ROWS),
+          f"System Zero trace {trace.shape}")
+    log(f"  trace {trace.shape} made on the host in {gen_s:.3f} s")
+    t = time.perf_counter()
+    prog = stark_program(stark, config)
+    linearize(prog)
+    prog_line = stark_programs_line([prog], ["SystemZero"],
+                                    [time.perf_counter() - t])
+    note_program(prog, dev)
+    res, proof = prove_stark_path(
+        f"System Zero (2^{MIN_TRACE_ROWS.bit_length() - 1} rows)",
+        lambda timing: prove(stark, config, trace, [0, 0], timing=timing),
+        STARK_KEYS, SYSTEM_ZERO_PROOF_SHA256)
+    t = time.perf_counter()
+    verify_stark_proof(stark, proof, config)
+    verify_s = time.perf_counter() - t
+    log(f"  the port's verifier accepts the proof in {verify_s:.2f} s")
+    bad = copy.deepcopy(proof)
+    bad.proof.openings.local_values[0][0] ^= np.uint64(1)
+    try:
+        verify_stark_proof(stark, bad, config)
+        rejected = None
+    except Exception as e:      # the verifiers raise several kinds
+        rejected = f"{type(e).__name__}: {e}"
+    check(rejected is not None, "the port's verifier accepted a System "
+          "Zero proof with a flipped opened value")
+    log(f"  ... and rejects it with one opened value flipped ({rejected})")
+    res.update(trace_gen_s=gen_s, programs=prog_line, verify_s=verify_s)
+    return res
+
+
+def recursion_path(data) -> tuple:
+    """The kernels a proof of `data` launches: K2's wide form only where
+    the LDE's first Merkle level is wider than its narrow top (2^14
+    parents), K7 never (the recursion set's witness is the host's)."""
+    wide = data.common.degree_bits() + data.common.config.fri_config \
+        .rate_bits - 1 > 14
+    return PROVE_PATH if wide else GATE_MIX_PATH
+
+
+def merge_paths(results) -> dict:
+    """Several proofs' numbers as one path of the kernels line: launches,
+    kernel ms, costs and walls summed, the highest peak."""
+    out = {"launches": {e: sum(r["launches"][e] for r in results)
+                        for e in KERNELS},
+           "kernel_ms": {}, "cost": {},
+           "cold_s": sum(r["cold_s"] for r in results),
+           "warm_s": [sum(w) for w in zip(*(r["warm_s"] for r in results))],
+           "peak_bytes": max(r["peak_bytes"] for r in results)}
+    for r in results:
+        for k, v in r["kernel_ms"].items():
+            out["kernel_ms"][k] = out["kernel_ms"].get(k, 0.0) + v
+        for e, c in r["cost"].items():
+            out["cost"][e] = tuple(x + y for x, y in zip(
+                out["cost"].get(e, (0, 0, 0)), c))
+    return out
+
+
+def phase_recursion(dev) -> dict:
+    """Recursion's chain (models/bench_recursion.py) under
+    standard_recursion_config (135 wires, rate 3, cap 4, 28 queries, 16
+    bits of proof of work): the no-op proof of 2^RECURSION_INNER_LOG rows
+    (device witness), the proof that verifies it and the proof that
+    verifies that one (host witness: the plan refuses the recursion set),
+    each through ProverSession on the card, cold and warm, verified, every
+    proof the pinned RECURSION_PROOF_SHA256 (the port's CPU proofs); each
+    link's build seconds, degree, program (ops, slots, K6 form), witness
+    seconds, peak and idle share.  The double proof compressed and
+    decompressed byte for byte (bench_recursion.report_serialization).
+    Then CYCLIC_STEPS links of the cyclic Poseidon hash chain
+    (models/cyclic_hash_chain.py) under the JAX test's
+    fast_recursion_config (cap height 4, 8 queries, 16 bits of proof of
+    work): the cycle's common data, the circuit (its dummy proof made on
+    the card), and each link proved and verified, its public inputs the
+    iterated host Poseidon and its verifier data the cycle's."""
+    import random
+    import torch
+    from plonky2_tpu_torch.iop.witness import PartialWitness
+    from plonky2_tpu_torch.models import bench_recursion as br
+    from plonky2_tpu_torch.models.cyclic_hash_chain import (
+        build_cyclic_hash_chain, fast_recursion_config, iterate_poseidon,
+        prove_link)
+    from plonky2_tpu_torch.plonk.recursion import \
+        check_cyclic_proof_verifier_data
+    from plonky2_tpu_torch.runtime.session import ProverSession
+    circ = recursion_circuits()
+    config = circ["config"]
+    links = {}
+
+    def link(name, data, pw, build_s, device_witness):
+        timer = StageTimer()
+        sess = ProverSession(data, timing=timer)
+        form = k6_form_of(sess)
+        log(f"  {name}: 2^{data.common.degree_bits()} rows, built in "
+            f"{build_s:.3f} s; quotient program compiled in "
+            f"{timer.ms['quotient program']:.3f} ms: {form}")
+        res, proof = prove_session(sess, pw, recursion_path(data), name,
+                                   RECURSION_PROOF_SHA256[name],
+                                   device_witness)
+        res.update(build_s=build_s, degree_bits=data.common.degree_bits(),
+                   compile_ms=timer.ms["quotient program"], k6_form=form)
+        links[name] = res
+        return proof, data.verifier_only, data.common
+
+    inner = link("dummy", circ["dummy"], PartialWitness(), circ["dummy_s"],
+                 True)
+    single, pt, vt = circ["single"]
+    middle = link("single", single, br.recursion_witness(pt, vt, inner),
+                  circ["single_s"], False)
+    t = time.perf_counter()
+    double, pt, vt = br.recursion_circuit(single.common, config)
+    torch.cuda.synchronize()
+    outer = link("double", double, br.recursion_witness(pt, vt, middle),
+                 time.perf_counter() - t, False)
+
+    sizes = br.report_serialization(*outer)
+    log(f"  double proof: {sizes['proof_bytes']} bytes, compressed "
+        f"{sizes['compressed_bytes']} bytes in "
+        f"{sizes['compress_seconds']:.3f} s; decompressed in "
+        f"{sizes['decompress_seconds']:.3f} s, byte for byte the proof")
+    del circ, single, double, inner, middle, outer
+    torch.cuda.empty_cache()
+
+    cyc_timer = StageTimer()
+    t = time.perf_counter()
+    chain = build_cyclic_hash_chain(fast_recursion_config(),
+                                    rng=random.Random(0), timing=cyc_timer)
+    torch.cuda.synchronize()
+    cyc_build_s = time.perf_counter() - t
+    log(f"  cyclic hash chain: common data (three builds) in "
+        f"{cyc_timer.ms['common data'] / 1e3:.3f} s, 2^"
+        f"{chain.common_data.degree_bits()} rows; the circuit, its dummy "
+        f"proof included, in "
+        f"{cyc_timer.ms['dummy proof and build'] / 1e3:.3f} s; "
+        f"{cyc_build_s:.3f} s in all")
+    steps, previous = [], None
+    for i in range(CYCLIC_STEPS):
+        t = time.perf_counter()
+        previous = prove_link(chain, previous, CYCLIC_INITIAL,
+                              rng=random.Random(i))
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t
+        t = time.perf_counter()
+        chain.data.verify(previous)
+        check_cyclic_proof_verifier_data(previous, chain.data.verifier_only,
+                                         chain.data.common)
+        verify_s = time.perf_counter() - t
+        pis = [int(x) for x in previous.public_inputs]
+        check(pis[0:4] == CYCLIC_INITIAL and pis[8] == i + 1
+              and pis[4:8] == iterate_poseidon(CYCLIC_INITIAL, i + 1),
+              f"cyclic link {i + 1}'s public inputs are not the chain")
+        steps.append({"prove_s": prove_s, "verify_s": verify_s})
+        log(f"  cyclic link {i + 1}: proved in {prove_s:.3f} s "
+            f"({'with its dummy base proof' if not i else 'host witness'}"
+            f"), verified in {verify_s:.3f} s; tip = Poseidon^{i + 1} of "
+            "the initial hash, verifier data the cycle's")
+    res = merge_paths(list(links.values()))
+    res.update(links={k: {f: v[f] for f in (
+        "cold_s", "warm_s", "build_s", "degree_bits", "compile_ms",
+        "k6_form", "peak_bytes", "profile", "runs")}
+        for k, v in links.items()},
+        double_bytes=sizes["proof_bytes"],
+        double_compressed_bytes=sizes["compressed_bytes"],
+        compress_s=sizes["compress_seconds"],
+        decompress_s=sizes["decompress_seconds"],
+        cyclic={"build_s": cyc_build_s, "stages_ms": cyc_timer.ms,
+                "degree_bits": chain.data.common.degree_bits(),
+                "steps": steps})
     return res
 
 
@@ -2918,6 +3206,15 @@ def main() -> int:
     with phase(f"9f the Fibonacci STARK at 2^{FIB_LOG_N} rows, proved and "
                "verified"):
         paths["fib_stark"] = phase_fib_stark(dev)
+    torch.cuda.empty_cache()
+    with phase("9g System Zero at 2^16 rows (558 columns), proved and "
+               "verified"):
+        paths["system_zero"] = phase_system_zero(dev)
+    torch.cuda.empty_cache()
+    with phase(f"9h recursion: the no-op proof of 2^{RECURSION_INNER_LOG} "
+               "rows, single and double recursion, compression, "
+               f"{CYCLIC_STEPS} links of a cyclic chain"):
+        paths["recursion"] = phase_recursion(dev)
     with phase("10 kernels line"):
         line = kernels_line(kern, paths, smi, waves)
         line["narrow_levels"] = narrow
@@ -2933,7 +3230,9 @@ def main() -> int:
                       "plan_check", "grind", "k7_waves", "fri_paths",
                       "k8_record", "compile_ms", "k6_form", "build_s",
                       "build_stages_ms", "gates", "n_gates", "trace_gen_s",
-                      "shapes", "programs", "verify_s"):
+                      "shapes", "programs", "verify_s", "links",
+                      "double_bytes", "double_compressed_bytes",
+                      "compress_s", "decompress_s", "cyclic"):
                 if f in p:
                     line["paths"][k][f] = p[f]
     with phase("11 int32 multiply rate and field-product SASS"):

@@ -96,6 +96,9 @@ class FriConfig:
     reduction_strategy: FriReductionStrategy
     num_query_rounds: int
 
+    def num_cap_elements(self) -> int:
+        return 1 << self.cap_height
+
     def fri_params(self, degree_bits: int, hiding: bool) -> "FriParams":
         rab = self.reduction_strategy.reduction_arity_bits(
             degree_bits, self.rate_bits, self.cap_height,

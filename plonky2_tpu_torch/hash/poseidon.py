@@ -83,8 +83,8 @@ def is_full_round(r: int) -> bool:
 @functools.lru_cache(maxsize=None)
 def _tables(device: str):
     rc = from_u64(ALL_ROUND_CONSTANTS.reshape(N_ROUNDS, WIDTH, 1), device)
-    mds = torch.from_numpy(MDS_MATRIX.astype(np.int64)).to(device)
-    return rc, mds[:, :, None]
+    mds = torch.from_numpy(MDS_MATRIX.astype(np.float64)).to(device)
+    return rc, mds
 
 
 def _sbox(x):
@@ -96,9 +96,10 @@ def _sbox(x):
 
 def _mds(state, mds):
     """out[r] = sum_c M[r, c] * state[c] mod p, exact through 32-bit
-    halves (coefficients < 64, so each half-sum stays under 2^42)."""
-    acc_lo = (mds * (state & gf.M32)[None]).sum(1)
-    acc_hi = (mds * gf.srl(state, 32)[None]).sum(1)
+    halves: `mds` is M in float64, and with coefficients < 64 each
+    half-sum stays under 2^42, so a float64 product sums it exactly."""
+    acc_lo = (mds @ (state & gf.M32).to(torch.float64)).to(torch.int64)
+    acc_hi = (mds @ gf.srl(state, 32).to(torch.float64)).to(torch.int64)
     low = acc_lo + ((acc_hi & gf.M32) << 32)
     high = gf.srl(acc_hi, 32) + gf.ult(low, acc_lo).to(torch.int64)
     return gf.reduce128(low, high)

@@ -6,6 +6,10 @@ whenever the input buffer fills or a challenge is drawn with inputs
 pending, challenges popped from the END of the output buffer, and every
 observation clearing the buffered outputs.  Values are canonical python ints
 (numpy uint64 accepted).  The permutation is hash/poseidon.py:permute_ints.
+
+``RecursiveChallenger`` is the same transcript in a circuit, over targets
+(JAX iop/challenger.py:RecursiveChallenger), each permutation a Poseidon
+gate.
 """
 from __future__ import annotations
 
@@ -95,3 +99,86 @@ class Challenger:
         self.input_buffer.clear()
         self.sponge_state = state
         self.output_buffer = list(state[:pos.SPONGE_RATE])
+
+
+class RecursiveChallenger:
+    """The duplex sponge over targets, in a circuit (reference
+    challenger.rs:164-299).  Its input buffer may grow beyond the rate: it
+    is absorbed in overwrite chunks of the rate when a challenge is drawn,
+    which is the host Challenger's transcript."""
+
+    def __init__(self, builder):
+        zero = builder.zero()
+        self.sponge_state = [zero] * pos.WIDTH
+        self.input_buffer: list = []
+        self.output_buffer: list = []
+
+    def observe_element(self, target) -> None:
+        self.output_buffer.clear()
+        self.input_buffer.append(target)
+
+    def observe_elements(self, targets) -> None:
+        for t in targets:
+            self.observe_element(t)
+
+    def observe_hash(self, hash4) -> None:
+        self.observe_elements(hash4)
+
+    def observe_cap(self, cap) -> None:
+        for h in cap:
+            self.observe_hash(h)
+
+    def observe_extension_element(self, element) -> None:
+        self.observe_elements(element)
+
+    def observe_extension_elements(self, elements) -> None:
+        for e in elements:
+            self.observe_extension_element(e)
+
+    def observe_openings(self, openings) -> None:
+        """openings: a fri.recursive_verifier.FriOpeningsTarget."""
+        for batch in openings.batches:
+            self.observe_extension_elements(batch.values)
+
+    def get_challenge(self, builder):
+        self._absorb_buffered(builder)
+        if not self.output_buffer:
+            self.sponge_state = builder.permute(self.sponge_state)
+            self.output_buffer = list(self.sponge_state[:pos.SPONGE_RATE])
+        return self.output_buffer.pop()
+
+    def get_n_challenges(self, builder, n: int) -> list:
+        return [self.get_challenge(builder) for _ in range(n)]
+
+    def get_extension_challenge(self, builder) -> tuple:
+        return tuple(self.get_n_challenges(builder, 2))
+
+    def _absorb_buffered(self, builder) -> None:
+        if not self.input_buffer:
+            return
+        for start in range(0, len(self.input_buffer), pos.SPONGE_RATE):
+            chunk = self.input_buffer[start:start + pos.SPONGE_RATE]
+            self.sponge_state[:len(chunk)] = chunk
+            self.sponge_state = builder.permute(self.sponge_state)
+        self.output_buffer = list(self.sponge_state[:pos.SPONGE_RATE])
+        self.input_buffer.clear()
+
+    def fri_challenges(self, builder, commit_phase_merkle_caps, final_poly,
+                       pow_witness, inner_fri_config):
+        """The FRI challenges as a FriChallengesTarget (reference
+        fri/challenges.rs:76-112)."""
+        from ..fri.recursive_verifier import FriChallengesTarget
+        fri_alpha = self.get_extension_challenge(builder)
+        fri_betas = []
+        for cap in commit_phase_merkle_caps:
+            self.observe_cap(cap)
+            fri_betas.append(self.get_extension_challenge(builder))
+        self.observe_extension_elements(final_poly.coeffs)
+        self.observe_element(pow_witness)
+        fri_pow_response = self.get_challenge(builder)
+        fri_query_indices = self.get_n_challenges(
+            builder, inner_fri_config.num_query_rounds)
+        return FriChallengesTarget(
+            fri_alpha=fri_alpha, fri_betas=fri_betas,
+            fri_pow_response=fri_pow_response,
+            fri_query_indices=fri_query_indices)

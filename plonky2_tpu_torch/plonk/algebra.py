@@ -7,7 +7,9 @@ gate's constraints (gates/*.py) runs in every domain the host layer needs:
   generators' batches);
 - ``ScalarBase``: the base field, python ints;
 - ``ScalarExt``: the quadratic extension, pairs of python ints (the
-  verifier at zeta).
+  verifier at zeta);
+- ``CircuitExtAlgebra``: extension targets, each operation a gate of a
+  CircuitBuilder (the recursive verifier's constraints, in the circuit).
 """
 from __future__ import annotations
 
@@ -118,6 +120,47 @@ class ScalarExt:
 
     def exp(self, a, e: int):
         return ge.s_exp(a, e)
+
+
+class CircuitExtAlgebra:
+    """Values are ExtensionTargets; each operation places gates into a
+    CircuitBuilder.  Any gate's ``eval_unfiltered`` run on it is that
+    gate's constraint evaluation in the circuit, which the reference
+    writes by hand for each gate as ``eval_unfiltered_circuit``
+    (gates/gate.rs:68)."""
+
+    def __init__(self, builder):
+        self.b = builder
+
+    def const(self, c: int):
+        return self.b.constant_extension((c % gl.P, 0))
+
+    def zero(self):
+        return self.b.zero_extension()
+
+    def one(self):
+        return self.b.one_extension()
+
+    def add(self, a, b):
+        return self.b.add_extension(a, b)
+
+    def sub(self, a, b):
+        return self.b.sub_extension(a, b)
+
+    def mul(self, a, b):
+        return self.b.mul_extension(a, b)
+
+    def neg(self, a):
+        return self.b.sub_extension(self.zero(), a)
+
+    def add_const(self, a, c: int):
+        return self.b.add_const_extension(a, c % gl.P)
+
+    def mul_const(self, a, c: int):
+        return self.b.mul_const_extension(c % gl.P, a)
+
+    def exp(self, a, e: int):
+        return self.b.exp_u64_extension(a, e)
 
 
 class EvaluationVars:

@@ -10,8 +10,11 @@ watch, and the circuit digest.  The commitment runs on the device through
 fri/oracle.py:PolynomialBatch.from_values (kernels K3, K5, K1 and K2 on a
 card).  It takes the JAX builder's gadget mixins for the extension field
 (gadgets/extension.py), bit splits, exponentiation and random access
-(gadgets/split.py) and coset interpolation (gates/interpolation.py); its
-u32, ECDSA, Merkle and recursion mixins and the cyclic-recursion goal are
+(gadgets/split.py), coset interpolation (gates/interpolation.py), Merkle
+proofs (gadgets/merkle.py), the FRI and PLONK verifiers in the circuit
+(fri/recursive_verifier.py, plonk/recursive_verifier.py) and conditional
+and cyclic recursion (plonk/recursion.py), with the cyclic-recursion goal;
+its u32, big-integer, ECDSA, permutation and tree-recursion mixins are
 ROADMAP 15c.
 """
 from __future__ import annotations
@@ -23,7 +26,9 @@ import numpy as np
 from .. import resolve_device
 from ..field import goldilocks as gl
 from ..fri.oracle import PolynomialBatch
+from ..fri.recursive_verifier import FriRecursiveGadgets
 from ..gadgets.extension import ExtensionGadgets
+from ..gadgets.merkle import MerkleGadgets
 from ..gadgets.split import SplitGadgets
 from ..gates.basic import (ArithmeticGate, ConstantGate, NoopGate,
                            PublicInputGate)
@@ -41,6 +46,8 @@ from .circuit_data import (CircuitData, CommonCircuitData,
                            ProverOnlyCircuitData, VerifierOnlyCircuitData)
 from .config import CircuitConfig
 from .permutation import Forest
+from .recursion import ConditionalRecursionGadgets
+from .recursive_verifier import RecursionGadgets
 
 
 class GateInstance:
@@ -51,7 +58,9 @@ class GateInstance:
         self.constants = constants
 
 
-class CircuitBuilder(ExtensionGadgets, SplitGadgets, InterpolationGadgets):
+class CircuitBuilder(ExtensionGadgets, SplitGadgets, MerkleGadgets,
+                     InterpolationGadgets, FriRecursiveGadgets,
+                     RecursionGadgets, ConditionalRecursionGadgets):
     def __init__(self, config: CircuitConfig):
         self.config = config
         self.gate_set: Dict[str, Gate] = {}
@@ -67,6 +76,9 @@ class CircuitBuilder(ExtensionGadgets, SplitGadgets, InterpolationGadgets):
         # gate id -> {params: (gate index, next free slot)}
         self.current_slots: Dict[str, Dict[tuple, Tuple[int, int]]] = {}
         self.constant_generators: List[ConstantGenerator] = []
+        # cyclic recursion (reference circuit_builder.rs:107-111)
+        self.goal_common_data = None
+        self.verifier_data_public_input = None
 
     # -- targets and wiring ---------------------------------------------
 
@@ -95,6 +107,16 @@ class CircuitBuilder(ExtensionGadgets, SplitGadgets, InterpolationGadgets):
         t = self.add_virtual_target()
         self.register_public_input(t)
         return t
+
+    def add_virtual_bool_target_safe(self) -> Target:
+        b = self.add_virtual_target()
+        self.assert_bool(b)
+        return b
+
+    def add_gate_to_gate_set(self, gate: Gate) -> None:
+        """A gate in the gate set with no instance (to give a circuit the
+        CommonCircuitData of a goal, reference circuit_builder.rs:333)."""
+        self.gate_set.setdefault(gate.id(), gate)
 
     def add_gate(self, gate: Gate, constants: List[int]) -> int:
         if gate.num_wires() > self.config.num_wires:
@@ -358,6 +380,82 @@ class CircuitBuilder(ExtensionGadgets, SplitGadgets, InterpolationGadgets):
                     lst.append(i)
         return by_watches
 
+    def build_common(self) -> CommonCircuitData:
+        """The CommonCircuitData that build() would give, without the
+        sigmas, the commitment and the generator index: all that
+        plonk/recursion.py:common_data_for_recursion reads of the circuits
+        it builds.  The builder is finished as build() finishes it."""
+        return self._finish_gates()[0]
+
+    def _finish_gates(self):
+        """Place the public-inputs hash, the constant gates and the
+        padding; (CommonCircuitData, the constant polynomials' values)."""
+        config = self.config
+        rate_bits = config.fri_config.rate_bits
+        cap_height = config.fri_config.cap_height
+        # the public-inputs hash in the circuit, routed to a PublicInputGate
+        num_public_inputs = len(self.public_inputs)
+        pi_hash = self.hash_n_to_hash_no_pad(list(self.public_inputs))
+        pi_gate = self.add_gate(PublicInputGate(), [])
+        for i, hp in enumerate(pi_hash):
+            self.connect(hp, ("w", pi_gate, i))
+        for w in range(4, config.num_wires):
+            self.generators.append(RandomValueGenerator(("w", pi_gate, w)))
+
+        # the constant gates
+        while len(self.constants_to_targets) > len(self.constant_generators):
+            self.add_gate(ConstantGate(config.num_constants), [])
+        for (c, t), cg in zip(sorted(self.constants_to_targets.items(),
+                                     key=lambda kv: kv[0]),
+                              self.constant_generators):
+            self.gate_instances[cg.row].constants[cg.constant_index] = c
+            self.connect(("w", cg.row, cg.wire_index), t)
+            cg.constant = c
+            self.generators.append(cg)
+
+        # cyclic recursion: pad to the goal's degree, so that the circuit's
+        # CommonCircuitData is the goal's
+        if self.goal_common_data is not None:
+            goal_degree = self.goal_common_data.degree()
+            if self.num_gates() > goal_degree:
+                raise ValueError(
+                    f"circuit has {self.num_gates()} gates, more than the "
+                    f"cyclic goal degree {goal_degree}")
+            while self.num_gates() < goal_degree:
+                self.add_gate(NoopGate(), [])
+
+        self._blind_and_pad()
+        degree_bits = log2_strict(len(self.gate_instances))
+        fri_params = config.fri_config.fri_params(degree_bits,
+                                                  config.zero_knowledge)
+        if fri_params.total_arities() > degree_bits + rate_bits - cap_height:
+            raise ValueError("FRI total reduction arity is too large.")
+
+        quotient_degree_factor = config.max_quotient_degree_factor
+        gates = sorted(self.gate_set.values(),
+                       key=lambda g: (g.degree(), g.id()))
+        selector_polys, selectors_info = selector_polynomials(
+            gates, self.gate_instances, quotient_degree_factor + 1)
+        constant_vecs = np.concatenate(
+            [selector_polys, self._constant_polys()], axis=0)
+        common = CommonCircuitData(
+            config=config, fri_params=fri_params, gates=gates,
+            selectors_info=selectors_info,
+            quotient_degree_factor=quotient_degree_factor,
+            num_gate_constraints=max(g.num_constraints() for g in gates),
+            num_constants=constant_vecs.shape[0],
+            num_public_inputs=num_public_inputs,
+            k_is=[pow(gl.MULTIPLICATIVE_GROUP_GENERATOR, i, gl.P)
+                  for i in range(config.num_routed_wires)],
+            num_partial_products=(-(-config.num_routed_wires
+                                    // quotient_degree_factor) - 1),
+            hasher_name=POSEIDON_CONFIG.name)
+        if (self.goal_common_data is not None
+                and self.goal_common_data != common):
+            raise ValueError("The expected circuit data passed to cyclic "
+                             "recursion did not match the actual circuit")
+        return common, constant_vecs
+
     def build(self, device=None, timing=None) -> CircuitData:
         """The circuit's data; the constants-sigmas commitment runs on
         `device` (default cuda).  ``timing.scope(name)`` wraps each stage
@@ -366,61 +464,21 @@ class CircuitBuilder(ExtensionGadgets, SplitGadgets, InterpolationGadgets):
         dev = resolve_device(device)
         gc = POSEIDON_CONFIG
         config = self.config
-        rate_bits = config.fri_config.rate_bits
-        cap_height = config.fri_config.cap_height
 
         with timing.scope("gates and wiring"):
-            # the public-inputs hash in the circuit, routed to a
-            # PublicInputGate
-            num_public_inputs = len(self.public_inputs)
-            pi_hash = self.hash_n_to_hash_no_pad(list(self.public_inputs))
-            pi_gate = self.add_gate(PublicInputGate(), [])
-            for i, hp in enumerate(pi_hash):
-                self.connect(hp, ("w", pi_gate, i))
-            for w in range(4, config.num_wires):
-                self.generators.append(RandomValueGenerator(("w", pi_gate,
-                                                             w)))
-
-            # the constant gates
-            while (len(self.constants_to_targets)
-                   > len(self.constant_generators)):
-                self.add_gate(ConstantGate(config.num_constants), [])
-            for (c, t), cg in zip(sorted(self.constants_to_targets.items(),
-                                         key=lambda kv: kv[0]),
-                                  self.constant_generators):
-                self.gate_instances[cg.row].constants[cg.constant_index] = c
-                self.connect(("w", cg.row, cg.wire_index), t)
-                cg.constant = c
-                self.generators.append(cg)
-
-            self._blind_and_pad()
-            degree = len(self.gate_instances)
-            degree_bits = log2_strict(degree)
-            fri_params = config.fri_config.fri_params(degree_bits,
-                                                      config.zero_knowledge)
-            if fri_params.total_arities() > (degree_bits + rate_bits
-                                             - cap_height):
-                raise ValueError("FRI total reduction arity is too large.")
-
-            quotient_degree_factor = config.max_quotient_degree_factor
-            gates = sorted(self.gate_set.values(),
-                           key=lambda g: (g.degree(), g.id()))
-            selector_polys, selectors_info = selector_polynomials(
-                gates, self.gate_instances, quotient_degree_factor + 1)
-            constant_vecs = np.concatenate(
-                [selector_polys, self._constant_polys()], axis=0)
-            num_constants = constant_vecs.shape[0]
+            common, constant_vecs = self._finish_gates()
+            degree = common.degree()
+            degree_bits = common.degree_bits()
 
         with timing.scope("forest and sigmas"):
             subgroup = gl.two_adic_subgroup(degree_bits)
-            k_is = [pow(gl.MULTIPLICATIVE_GROUP_GENERATOR, i, gl.P)
-                    for i in range(config.num_routed_wires)]
-            sigma_vecs, forest = self._sigma_vecs(k_is, subgroup)
+            sigma_vecs, forest = self._sigma_vecs(common.k_is, subgroup)
 
         with timing.scope("constants-sigmas commitment"):
             constants_sigmas_commitment = PolynomialBatch.from_values(
                 np.concatenate([constant_vecs, sigma_vecs], axis=0),
-                rate_bits, False, cap_height, device=dev)
+                config.fri_config.rate_bits, False,
+                config.fri_config.cap_height, device=dev)
 
         with timing.scope("generator index"):
             # a slot gate's unused operations get no generator
@@ -443,16 +501,6 @@ class CircuitBuilder(ExtensionGadgets, SplitGadgets, InterpolationGadgets):
                 cap.digests.reshape(-1), gc.hash_pad_elements([]),
                 np.array([degree_bits], dtype=np.uint64)]))
 
-        common = CommonCircuitData(
-            config=config, fri_params=fri_params, gates=gates,
-            selectors_info=selectors_info,
-            quotient_degree_factor=quotient_degree_factor,
-            num_gate_constraints=max(g.num_constraints() for g in gates),
-            num_constants=num_constants,
-            num_public_inputs=num_public_inputs, k_is=k_is,
-            num_partial_products=(-(-config.num_routed_wires
-                                    // quotient_degree_factor) - 1),
-            hasher_name=gc.name)
         prover_only = ProverOnlyCircuitData(
             generators=self.generators,
             generator_indices_by_watches=by_watches,

@@ -13,11 +13,11 @@ from typing import Dict, List
 import numpy as np
 
 from ..fri.config import FriParams
-from ..fri.structure import FriInstanceInfo
+from ..fri.structure import FriInstanceInfo, FriOracleInfo
 from ..gates.gate import Gate, SelectorsInfo
 from ..hash.hashers import POSEIDON_CONFIG
 from .config import CircuitConfig
-from .prover_data import fri_instance
+from .prover_data import ORACLE_BLINDING, fri_instance
 from .verifier import verify
 
 
@@ -60,6 +60,13 @@ class CommonCircuitData:
 
     def num_quotient_polys(self) -> int:
         return self.config.num_challenges * self.quotient_degree_factor
+
+    def fri_oracles(self) -> List[FriOracleInfo]:
+        """The four oracles: constants-sigmas, wires, Z/PP, quotient."""
+        return [FriOracleInfo(n, b) for n, b in zip(
+            (self.num_preprocessed_polys(), self.config.num_wires,
+             self.num_zs_partial_products_polys(),
+             self.num_quotient_polys()), ORACLE_BLINDING)]
 
     def get_fri_instance(self, zeta) -> FriInstanceInfo:
         return fri_instance((self.num_preprocessed_polys(),

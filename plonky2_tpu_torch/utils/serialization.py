@@ -1,5 +1,6 @@
-"""Proof (de)serialization (the port's copy of the uncompressed forms of
-plonky2_tpu/utils/serialization.py), byte-compatible with the reference's
+"""Proof (de)serialization (the port's copy of
+plonky2_tpu/utils/serialization.py), plain and compressed proofs
+(plonk/compression.py), byte-compatible with the reference's
 Buffer format (plonky2/src/util/serialization.rs:480-700): fields as
 little-endian u64, hashes as 4 fields, Merkle proofs prefixed by their
 length in one u8, structures concatenated with no other framing (the
@@ -30,8 +31,14 @@ class Buffer:
     def write_u8(self, x: int):
         self.data += struct.pack("<B", x)
 
+    def write_u32(self, x: int):
+        self.data += struct.pack("<I", x)
+
     def write_field(self, x):
         self.data += struct.pack("<Q", int(x))
+
+    def write_field_ext(self, x):
+        self.write_field_vec(np.asarray(x, dtype=np.uint64).reshape(2))
 
     def write_field_vec(self, v):
         self.data += np.asarray(v, dtype=np.uint64).reshape(-1).astype(
@@ -90,6 +97,11 @@ class Buffer:
         self.pos += 1
         return v
 
+    def read_u32(self) -> int:
+        v = struct.unpack_from("<I", self.data, self.pos)[0]
+        self.pos += 4
+        return v
+
     def read_field(self) -> int:
         v = struct.unpack_from("<Q", self.data, self.pos)[0]
         self.pos += 8
@@ -127,31 +139,31 @@ class Buffer:
             quotient_polys=self.read_field_ext_vec(
                 common.num_quotient_polys()))
 
+    def read_initial_trees_proof(self, common) -> FriInitialTreeProof:
+        # the constants-sigmas oracle is never salted
+        salt = SALT_SIZE if common.fri_params.hiding else 0
+        evals_proofs = []
+        for n_polys in (common.num_preprocessed_polys(),
+                        common.config.num_wires + salt,
+                        common.num_zs_partial_products_polys() + salt,
+                        common.num_quotient_polys() + salt):
+            v = self.read_field_vec(n_polys)
+            evals_proofs.append((v, self.read_merkle_proof()))
+        return FriInitialTreeProof(evals_proofs)
+
     def read_fri_proof(self, common) -> FriProof:
         params = common.fri_params
         cfg = params.config
         caps = [self.read_merkle_cap(cfg.cap_height)
                 for _ in params.reduction_arity_bits]
-        # the constants-sigmas oracle is never salted
-        salt = SALT_SIZE if params.hiding else 0
-        num_leaves_per_oracle = [
-            common.num_preprocessed_polys(),
-            common.config.num_wires + salt,
-            common.num_zs_partial_products_polys() + salt,
-            common.num_quotient_polys() + salt,
-        ]
         rounds = []
         for _ in range(cfg.num_query_rounds):
-            evals_proofs = []
-            for n_polys in num_leaves_per_oracle:
-                v = self.read_field_vec(n_polys)
-                evals_proofs.append((v, self.read_merkle_proof()))
+            initial = self.read_initial_trees_proof(common)
             steps = []
             for arity_bits in params.reduction_arity_bits:
                 evals = self.read_field_ext_vec(1 << arity_bits)
                 steps.append(FriQueryStep(evals, self.read_merkle_proof()))
-            rounds.append(FriQueryRound(FriInitialTreeProof(evals_proofs),
-                                        steps))
+            rounds.append(FriQueryRound(initial, steps))
         final_poly = self.read_field_ext_vec(params.final_poly_len())
         pow_witness = self.read_field()
         return FriProof(caps, rounds, final_poly, pow_witness)
@@ -171,6 +183,77 @@ class Buffer:
         return ProofWithPublicInputs(proof, pis)
 
 
+    # -- compressed proofs (reference serialization.rs:352-470, 694-760) ----
+
+    def write_compressed_fri_proof(self, fp) -> None:
+        for cap in fp.commit_phase_merkle_caps:
+            self.write_merkle_cap(cap)
+        qrp = fp.query_round_proofs
+        for i in qrp.indices:
+            self.write_u32(i)
+        for idx in sorted(qrp.initial_trees_proofs):
+            for v, p in qrp.initial_trees_proofs[idx].evals_proofs:
+                self.write_field_vec(v)
+                self.write_merkle_proof(p)
+        for step_map in qrp.steps:
+            for idx in sorted(step_map):
+                self.write_field_ext_vec(step_map[idx].evals)
+                self.write_merkle_proof(step_map[idx].merkle_proof)
+        self.write_field_ext_vec(fp.final_poly)
+        self.write_field(fp.pow_witness)
+
+    def write_compressed_proof_with_public_inputs(self, cpwp) -> None:
+        p = cpwp.proof
+        self.write_merkle_cap(p.wires_cap)
+        self.write_merkle_cap(p.plonk_zs_partial_products_cap)
+        self.write_merkle_cap(p.quotient_polys_cap)
+        self.write_opening_set(p.openings)
+        self.write_compressed_fri_proof(p.opening_proof)
+        self.write_field_vec(np.array(cpwp.public_inputs, dtype=np.uint64))
+
+    def read_compressed_fri_proof(self, common):
+        from ..plonk.compression import (CompressedFriProof,
+                                         CompressedFriQueryRounds)
+        params = common.fri_params
+        cfg = params.config
+        caps = [self.read_merkle_cap(cfg.cap_height)
+                for _ in params.reduction_arity_bits]
+        indices = [self.read_u32() for _ in range(cfg.num_query_rounds)]
+        initial_trees_proofs = {
+            idx: self.read_initial_trees_proof(common)
+            for idx in sorted(set(indices))}
+        steps = []
+        cur_indices = list(indices)
+        for arity_bits in params.reduction_arity_bits:
+            cur_indices = [i >> arity_bits for i in cur_indices]
+            step_map = {}
+            for idx in sorted(set(cur_indices)):
+                evals = self.read_field_ext_vec((1 << arity_bits) - 1)
+                step_map[idx] = FriQueryStep(evals, self.read_merkle_proof())
+            steps.append(step_map)
+        final_poly = self.read_field_ext_vec(params.final_poly_len())
+        pow_witness = self.read_field()
+        return CompressedFriProof(
+            commit_phase_merkle_caps=caps,
+            query_round_proofs=CompressedFriQueryRounds(
+                indices=indices, initial_trees_proofs=initial_trees_proofs,
+                steps=steps),
+            final_poly=final_poly, pow_witness=pow_witness)
+
+    def read_compressed_proof_with_public_inputs(self, common):
+        from ..plonk.compression import (CompressedProof,
+                                         CompressedProofWithPublicInputs)
+        cap_height = common.config.fri_config.cap_height
+        proof = CompressedProof(
+            wires_cap=self.read_merkle_cap(cap_height),
+            plonk_zs_partial_products_cap=self.read_merkle_cap(cap_height),
+            quotient_polys_cap=self.read_merkle_cap(cap_height),
+            openings=self.read_opening_set(common),
+            opening_proof=self.read_compressed_fri_proof(common))
+        pis = [int(x) for x in self.read_field_vec(common.num_public_inputs)]
+        return CompressedProofWithPublicInputs(proof, pis)
+
+
 def serialize_proof(pwp: ProofWithPublicInputs) -> bytes:
     buf = Buffer()
     buf.write_proof_with_public_inputs(pwp)
@@ -182,6 +265,20 @@ def deserialize_proof(data: bytes, common) -> ProofWithPublicInputs:
     out = buf.read_proof_with_public_inputs(common)
     if buf.pos != len(buf.data):
         raise ValueError("trailing bytes in proof")
+    return out
+
+
+def serialize_compressed_proof(cpwp) -> bytes:
+    buf = Buffer()
+    buf.write_compressed_proof_with_public_inputs(cpwp)
+    return buf.bytes()
+
+
+def deserialize_compressed_proof(data: bytes, common):
+    buf = Buffer(data)
+    out = buf.read_compressed_proof_with_public_inputs(common)
+    if buf.pos != len(buf.data):
+        raise ValueError("trailing bytes in compressed proof")
     return out
 
 

@@ -292,6 +292,49 @@ def test_constraint_program_kernel_keccak_table(dev):
            prog.run_plain(inputs, bank))
 
 
+def system_zero_program():
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.quotient_program import build_stark_program
+    from plonky2_tpu_torch.system_zero.system_zero import SystemZero
+    return build_stark_program(SystemZero(),
+                               StarkConfig.standard_fast_config())
+
+
+def recursion_program():
+    """The quotient program of the circuit that verifies a Fibonacci
+    proof (tests/test_torch_recursion.py's one-level recursion, built on
+    the card under its small FRI)."""
+    from plonky2_tpu_torch.fri.config import FriConfig, FriReductionStrategy
+    from plonky2_tpu_torch.models.bench_recursion import recursion_circuit
+    from plonky2_tpu_torch.models.fibonacci import build_fibonacci_circuit
+    from plonky2_tpu_torch.plonk.config import CircuitConfig
+    from plonky2_tpu_torch.plonk.quotient_program import \
+        build_quotient_program
+    config = CircuitConfig(fri_config=FriConfig(
+        rate_bits=3, cap_height=1, proof_of_work_bits=1, num_query_rounds=2,
+        reduction_strategy=FriReductionStrategy.ConstantArityBits(4, 5)))
+    fib, _, _ = build_fibonacci_circuit(config)
+    data, _, _ = recursion_circuit(fib.common, config)
+    return build_quotient_program(data.common)
+
+
+@pytest.mark.parametrize("make", [system_zero_program, recursion_program])
+def test_constraint_program_kernel_system_zero_and_recursion(dev, make):
+    """K6 on System Zero's quotient program (its eval and permutation
+    checks) and on a recursion circuit's, against the plain version."""
+    prog = make()
+    rng = np.random.default_rng(12)
+    inputs = _rand((prog.n_inputs, 4096 + 37), 12, dev)
+    inputs[:, :64] = from_u64(BOUNDARY[rng.integers(
+        0, 5, size=(prog.n_inputs, 64))], dev)
+    bank = from_u64(prog.scalar_bank([int(x) for x in rng.integers(
+        0, P, size=prog.n_scalar_inputs, dtype=np.uint64)]), dev)
+    before = cpc.run_program_cuda.launches
+    _equal(cpc.run_program_cuda(prog, inputs, bank),
+           prog.run_plain(inputs, bank))
+    assert cpc.run_program_cuda.launches == before + 1
+
+
 def test_constraint_program_kernel_bank_in_device_memory(dev):
     """A bank too large for shared memory beside the slots is read from
     device memory."""
