@@ -70,14 +70,27 @@ whole proof after the witness:
   compressed and restored byte for byte; then three links of the cyclic
   Poseidon hash chain (models/cyclic_hash_chain.py) under the JAX
   package's test config for it, each verified, its public inputs the
-  iterated host Poseidon.  Phases 9c-9f run EARLIER_WARM_RUNS warm proofs.
+  iterated host Poseidon;
+* recursive aggregation under standard_recursion_config (phases 9i-9j):
+  the Fibonacci STARK's 2^20-row proof verified in a circuit
+  (stark/recursive_verifier.py) and the 640-op EVM proof's four tables
+  each in a circuit of its own (evm/recursive_verifier.py:
+  recursive_stark_circuit, wrap_table_proof, wrap_all_proof), every
+  wrapper proved and pinned, the aggregate check; a tree of recursion of depth 2
+  (plonk/tree_recursion.py: four leaves, two nodes, the root);
+* the U32, comparison and permutation gate set (phase 9k,
+  models/gate_set.py): sorted memory operations, a permutation,
+  insertions and u32 arithmetic filling 2^14 rows under
+  standard_ecc_config, proved, pinned to the port's CPU proof, a
+  non-permutation refused.  Phases 9c-9k run EARLIER_WARM_RUNS warm
+  proofs.
 
 The script builds the kernels from csrc/ with nvcc (one process per
 source, in parallel), holds each kernel, in each of its forms (K3 and K5
 down the columns and along the rows; K6 on the flagship's program, the
 gate mix's, one of more slots than shared memory holds, the EVM keccak
-table's, System Zero's and the single-recursion circuit's), against its
-plain PyTorch version on the card (exact equality: integer arithmetic,
+table's, System Zero's, the single-recursion circuit's, the wrappers'
+and the gate set's), against its plain PyTorch version on the card (exact equality: integer arithmetic,
 tolerance 0), runs each path
 at full width with its launch counts set to 0 just before and read just
 after, holds the full-width results against the plain versions on subsets,
@@ -207,8 +220,55 @@ RECURSION_PROOF_SHA256 = {
 # package's dummy_circuit does the same).
 CYCLIC_STEPS = 3
 CYCLIC_INITIAL = [0, 1, 2, 3]
-# phases 9c-9f run fewer warm proofs than the others, which keeps the
-# whole script inside its time limit since 9g and 9h came
+# Recursive aggregation (phases 9i-9j) under standard_recursion_config,
+# each proof from random.Random(0) unless said otherwise.  Phase 9i wraps
+# phase 9f's Fibonacci STARK proof in a circuit (its proof the port's CPU
+# proof, scripts/port_aggregation_proofs.py --device cpu) and phase 9e's
+# EVM proof in one circuit a table (the memory table's proof the port's
+# CPU proof of the card's EVM proof, the others the card's).
+WRAP_FIB_PROOF_SHA256 = ("84fbb9087b6f28e49bad7275389561f4544dbd5809c17f05"
+                         "dc4bc927bf4b1a3c")
+EVM_WRAPPER_PROOF_SHA256 = {
+    "KeccakStark": ("17e12cb6286b14a18309b99f922bc9b0252f466a4d228de70f0764"
+                    "e7d68ba5bc"),
+    "KeccakSpongeStark": ("4385dc7ca2b14e1776310e479972e4831fc5024b5839ba98"
+                          "b620c70d7258a89a"),
+    "LogicStark": ("fb95ca478a359a12cb32b7f9ba312bec4400d24a00258b851122295f"
+                   "a255e51a"),
+    "MemoryStark": ("e133d2603afdfa381874feee4dcccdcc2ebb582df212eb51458766"
+                    "2c9c9940b2"),
+}
+# Phase 9j: tests/test_tree_recursion.py's tree over the Fibonacci circuit
+# of models/fibonacci.py, its common data common_data_for_recursion(config,
+# 5, 2): the inner proof, four leaves (leaf i from random.Random(i)), two
+# nodes over them (random.Random(4 + j)) and the root (random.Random(6)),
+# the card's proofs
+TREE_PROOF_SHA256 = {
+    "inner": ("dfe7821b65a0dbf61459909e25621a19f184842c41c1153b3299994c466"
+              "47656"),
+    "leaf": [("e72557a31cafbc5b03983297ed8cc97169161dda353bdfa06d771f40466"
+              "73652"),
+             ("aed474eff54111b8ec43f1b2a082adce8d7ad180e3a49edea06fd08da18"
+              "2f7a9"),
+             ("dd1557ce9649857a230409495c0e1ca826dd2531b87c07b3fa3cb2d988a"
+              "4bd76"),
+             ("8e9a5a31a444db5862bb2a1d007f1ddc2860f4513337b9bbfcdcf1763ec"
+              "215b3")],
+    "node": [("ce3721a2c2749c594a131170fbb6c24e41ae0e90bcfb69d4f5060c12047"
+              "58ca8"),
+             ("3bbb06fea8d3d85da99fe4daeecb01d366b97e7f2d2578a44550f37e952"
+              "7df25")],
+    "root": ("b4a7eca19387ee3602ebace1f36f559a2b23c1287bca13bc660b60a16cdf"
+             "ca08"),
+}
+# Phase 9k: the U32, comparison and permutation gate set of
+# models/gate_set.py under standard_ecc_config (136 wires), at its
+# default sizes (2^14 rows); its proof the port's CPU proof
+# (scripts/port_aggregation_proofs.py --device cpu)
+GATE_SET_PROOF_SHA256 = ("66189c9cff009594109362e33c16762c29a0ac1334defcc7"
+                         "ee1b2f2e3f783b2b")
+# phases 9c-9k run fewer warm proofs than the others, which keeps the
+# whole script inside its time limit since 9g-9k came
 EARLIER_WARM_RUNS = 1
 # the TPU kernels each STARK path must launch (K4 and K7 where they do)
 STARK_KEYS = ("K1", "K2", "K3", "K5", "K6", "K8", "K9")
@@ -926,12 +986,14 @@ def single_recursion_program():
 
 
 def k6_programs(dev, rng, compare) -> dict:
-    """K6 on six programs, each held against run_plain (exact) and
+    """K6 on nine programs, each held against run_plain (exact) and
     timed at K6_TIMING_LANES lanes (CUDA events, the median of 3 launches
     after a warm-up): the flagship's, the gate mix's, a program of more
     slots than shared memory holds at 32 lanes a block
     (constraint_program.py:wide_program), the EVM keccak table's (about
-    29,000 ops), System Zero's and the single-recursion circuit's.  Per
+    29,000 ops), System Zero's, the single-recursion circuit's, the
+    Fibonacci and EVM wrappers' (phase 9i) and the U32 and permutation
+    gate set's (9k).  Per
     program its form (lanes a block, slots in shared memory and spilled),
     ms a launch and ns a lane."""
     from plonky2_tpu_torch.field.convert import from_u64
@@ -943,7 +1005,9 @@ def k6_programs(dev, rng, compare) -> dict:
              "wide": cp.wide_program(),
              "keccak table": keccak_table_program(),
              "system zero": system_zero_program(),
-             "single recursion": single_recursion_program()}
+             "single recursion": single_recursion_program(),
+             **wrapper_programs(),
+             "gate set": gate_set_program()}
     out = {}
     for name, prog in progs.items():
         lin = cp.linearize(prog)
@@ -1588,12 +1652,14 @@ def time_stages(out, values, wires_batch, sigmas, shape, challenges):
     return res
 
 
-def profile_run(fn) -> dict:
+def profile_run(fn, warmup: bool = True) -> dict:
     """Device busy time (sum of kernel times from torch.profiler) against
-    the wall time of one traced fn()."""
+    the wall time of one traced fn(), after one untraced fn() unless the
+    caller has just run it (`warmup` False)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2406,19 +2472,24 @@ def check_flagship_program(prog) -> None:
 
 
 def prove_session(sess, pw, path, label, want_sha, device_witness,
-                  want_pis=None, warm_runs=WARM_RUNS) -> tuple:
-    """ProverSession.prove of `pw`: one cold run (launch counts set to 0
+                  want_pis=None, warm_runs=WARM_RUNS, trace=True,
+                  prove=None) -> tuple:
+    """ProverSession.prove of `pw` (or `prove(rng, timing)`, an entry
+    point that proves in `sess`): one cold run (launch counts set to 0
     just before and read just after; every kernel of `path` launched) and
     `warm_runs` warm runs (timed per kernel), each from random.Random(0)
     and each verified with the port's verifier; every proof's sha256 must
     be `want_sha`.  The witness comes from the device plan (stage "device
     witness", K7) when `device_witness`, else from the host engine (stage
     "witness").  Returns the path's numbers (the traced idle share of one
-    more warm run included) and the proof."""
+    more warm run included, where `trace`) and the proof."""
     import hashlib
     import random
     import torch
     from plonky2_tpu_torch.utils.serialization import serialize_proof
+    if prove is None:
+        def prove(rng, timing=None):
+            return sess.prove(pw, rng=rng, timing=timing)
     note_program(sess.prover_data.program, sess.device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2429,7 +2500,7 @@ def prove_session(sess, pw, path, label, want_sha, device_witness,
         with contextlib.ExitStack() as stack:
             rec = stack.enter_context(KernelRecorder()) if i else None
             t = time.perf_counter()
-            proof = sess.prove(pw, rng=random.Random(0), timing=timer)
+            proof = prove(random.Random(0), timer)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         if not i:
@@ -2461,7 +2532,8 @@ def prove_session(sess, pw, path, label, want_sha, device_witness,
     peak = torch.cuda.max_memory_allocated()
     log_stages(timer, runs[-1]["wall_s"])
     log(f"  {label}: peak max_memory_allocated {peak / 2**30:.3f} GiB")
-    profile = profile_run(lambda: sess.prove(pw, rng=random.Random(0)))
+    profile = (profile_run(lambda: prove(random.Random(0)), warmup=False)
+               if trace else None)
     shas = {r["sha256"] for r in runs}
     check(shas == {want_sha}, f"the {label}'s proofs ({shas}) are not the "
           f"pinned {want_sha}")
@@ -2670,7 +2742,8 @@ def phase_evm(dev) -> dict:
     the port's verifier on one proof and on a copy with one opened value
     flipped; then the tests' two sponge ops under their small config,
     whose proof must equal the port's CPU proof (EVM_SMALL_PROOF_SHA256,
-    which tests/test_torch_evm.py holds equal to the JAX package's)."""
+    which tests/test_torch_evm.py holds equal to the JAX package's).  The
+    result keeps the 640-op proof ("proof"), which phase 9i wraps."""
     import copy
     import torch
     from plonky2_tpu_torch.evm import all_stark, workload
@@ -2721,7 +2794,7 @@ def phase_evm(dev) -> dict:
     check(rejected is not None, "the port's verifier accepted a proof "
           "with a flipped opened value")
     log(f"  ... and rejects it with one opened value flipped ({rejected})")
-    del proof, bad, traces
+    del bad, traces
     torch.cuda.empty_cache()
 
     small_config = StarkConfig(
@@ -2740,7 +2813,7 @@ def phase_evm(dev) -> dict:
         f"proof equals the port's CPU proof (sha256 {sha}), which the CPU "
         "tests hold equal to the JAX package's")
     res.update(trace_gen_s=gen_s, shapes=shapes, programs=prog_line,
-               verify_s=verify_s)
+               verify_s=verify_s, proof=proof)
     return res
 
 
@@ -2813,7 +2886,7 @@ def phase_system_zero(dev) -> dict:
     res, proof = prove_stark_path(
         f"System Zero (2^{MIN_TRACE_ROWS.bit_length() - 1} rows)",
         lambda timing: prove(stark, config, trace, [0, 0], timing=timing),
-        STARK_KEYS, SYSTEM_ZERO_PROOF_SHA256)
+        STARK_KEYS, SYSTEM_ZERO_PROOF_SHA256, warm_runs=EARLIER_WARM_RUNS)
     t = time.perf_counter()
     verify_stark_proof(stark, proof, config)
     verify_s = time.perf_counter() - t
@@ -2899,7 +2972,8 @@ def phase_recursion(dev) -> dict:
             f"{timer.ms['quotient program']:.3f} ms: {form}")
         res, proof = prove_session(sess, pw, recursion_path(data), name,
                                    RECURSION_PROOF_SHA256[name],
-                                   device_witness)
+                                   device_witness,
+                                   warm_runs=EARLIER_WARM_RUNS)
         res.update(build_s=build_s, degree_bits=data.common.degree_bits(),
                    compile_ms=timer.ms["quotient program"], k6_form=form)
         links[name] = res
@@ -2969,6 +3043,403 @@ def phase_recursion(dev) -> dict:
         cyclic={"build_s": cyc_build_s, "stages_ms": cyc_timer.ms,
                 "degree_bits": chain.data.common.degree_bits(),
                 "steps": steps})
+    return res
+
+
+@functools.lru_cache(maxsize=1)
+def wrapper_programs() -> dict:
+    """The quotient programs of phase 9i's wrappers, from their common
+    data (nothing committed): the Fibonacci wrapper's and the EVM memory
+    table's at EVM_LOG_ROWS (the four EVM wrappers' gate sets are one)."""
+    from plonky2_tpu_torch.evm import all_stark
+    from plonky2_tpu_torch.evm.recursive_verifier import wrapper_builder
+    from plonky2_tpu_torch.models.fibonacci_stark import FibonacciStark
+    from plonky2_tpu_torch.models.stark_wrapper import stark_wrapper_builder
+    from plonky2_tpu_torch.plonk.quotient_program import \
+        build_quotient_program
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    config = StarkConfig.standard_fast_config()
+    fib, _ = stark_wrapper_builder(FibonacciStark(1 << FIB_LOG_N), config,
+                                   FIB_LOG_N)
+    mem = all_stark.MEMORY
+    evm = wrapper_builder(all_stark.MemoryStark(),
+                          all_stark.all_cross_table_lookups(), mem,
+                          EVM_LOG_ROWS[mem], config)[0]
+    return {"Fibonacci wrapper": build_quotient_program(fib.build_common()),
+            "EVM wrapper": build_quotient_program(evm.build_common())}
+
+
+def gate_set_program():
+    """Phase 9k's quotient program (models/gate_set.py at its sizes)."""
+    from plonky2_tpu_torch.models.gate_set import build_gate_set_circuit
+    from plonky2_tpu_torch.plonk.quotient_program import \
+        build_quotient_program
+    return build_quotient_program(build_gate_set_circuit(build=False)[0])
+
+
+def refused(fn, kinds, match: str) -> str:
+    """The error that `fn()` raises, as text: it must be of `kinds` and
+    its message must hold `match`; any other error goes up.  None if
+    fn() returns."""
+    try:
+        fn()
+    except kinds as e:
+        why = f"{type(e).__name__}: {e}"
+        check(match in str(e), f"refused for another reason: {why}")
+        return why
+    return None
+
+
+def new_session(data) -> tuple:
+    """A ProverSession of `data` on the card and its quotient program's
+    compile milliseconds."""
+    from plonky2_tpu_torch.runtime.session import ProverSession
+    timer = StageTimer()
+    sess = ProverSession(data, timing=timer)
+    return sess, timer.ms["quotient program"]
+
+
+def wrap_session(label, sess, compile_ms, pw, want_sha, build_s,
+                 want_pis=None, trace=True, prove=None):
+    """A circuit of phases 9i-9k through its ProverSession `sess` on the
+    card (its quotient program compiled in `compile_ms`): the device
+    witness plan refused for `pw` (the host engine runs), one cold and
+    EARLIER_WARM_RUNS warm proofs of `pw`, or of `prove(rng, timing)`
+    where an entry point proves in `sess` (prove_session), then, where
+    `trace`, one traced proof right after them for the idle share;
+    returns (the path's numbers with the circuit's rows and build
+    seconds, the proof)."""
+    from plonky2_tpu_torch.iop import device_witness as dw
+    data = sess.data
+    check(dw.build_plan(data.prover_only, data.common, pw, sess.device)
+          is None, f"the device witness plan took the {label}")
+    form = k6_form_of(sess)
+    log(f"  {label}: 2^{data.common.degree_bits()} rows, built in "
+        f"{build_s:.3f} s; quotient program compiled in "
+        f"{compile_ms:.3f} ms: {form}")
+    res, proof = prove_session(sess, pw, recursion_path(data), label,
+                               want_sha, False, want_pis=want_pis,
+                               warm_runs=EARLIER_WARM_RUNS, trace=trace,
+                               prove=prove)
+    res.update(build_s=build_s, degree_bits=data.common.degree_bits(),
+               compile_ms=compile_ms, k6_form=form)
+    return res, proof
+
+
+def phase_wrap_fib(dev) -> dict:
+    """Phase 9i (a): phase 9f's Fibonacci STARK proof at 2^FIB_LOG_N rows
+    (proved again here, its sha256 FIB_PROOF_SHA256) in
+    models/stark_wrapper.py's circuit under standard_recursion_config,
+    built on the card, proved through ProverSession (host witness), cold
+    and warm, verified and pinned (WRAP_FIB_PROOF_SHA256, the port's CPU
+    proof), its public inputs the STARK's; a copy of the STARK proof with
+    one opened value changed is refused by the witness (a partition set
+    twice with different values)."""
+    import copy
+    import torch
+    from plonky2_tpu_torch.iop.witness import PartialWitness
+    from plonky2_tpu_torch.models.fibonacci_stark import FibonacciStark
+    from plonky2_tpu_torch.models.stark_wrapper import stark_wrapper_builder
+    from plonky2_tpu_torch.stark import recursive_verifier as srv
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.prover import prove
+    from plonky2_tpu_torch.utils.serialization import proof_sha256
+    config = StarkConfig.standard_fast_config()
+    stark = FibonacciStark(1 << FIB_LOG_N)
+    pis = [0, 1, stark.expected_result(0, 1)]
+    stark_proof = prove(stark, config, stark.generate_trace(0, 1), pis)
+    check(proof_sha256(stark_proof) == FIB_PROOF_SHA256,
+          "the Fibonacci STARK proof is not phase 9f's")
+    t = time.perf_counter()
+    b, pt = stark_wrapper_builder(stark, config, FIB_LOG_N)
+    data = b.build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    pw = PartialWitness()
+    srv.set_stark_proof_with_pis_target(pw, pt, stark_proof)
+    sess, compile_ms = new_session(data)
+    fib, _ = wrap_session("Fibonacci wrapper", sess, compile_ms, pw,
+                          WRAP_FIB_PROOF_SHA256, build_s, want_pis=pis)
+    bad_proof = copy.deepcopy(stark_proof)
+    bad_proof.proof.openings.local_values[0][0] ^= np.uint64(1)
+    bad = PartialWitness()
+    srv.set_stark_proof_with_pis_target(bad, pt, bad_proof)
+    why = refused(lambda: sess.verify(sess.prove(bad)), ValueError,
+                  "set twice with different values")
+    check(why is not None, "the Fibonacci wrapper accepted a STARK proof "
+          "with a changed opened value")
+    log(f"  ... and refuses a STARK proof with one opened value changed "
+        f"({why[:160]})")
+    return fib
+
+
+def phase_wrap_evm(dev, evm_proof) -> dict:
+    """Phase 9i (b): phase 9e's EVM proof of EVM_OPS sponge ops wrapped
+    table by table under standard_recursion_config through
+    evm/recursive_verifier.py's entry points: the transcript replayed on
+    the host (replay_challenger_states); each table's wrapper built on the
+    card with its session (recursive_stark_circuit) and proved in it
+    through wrap_table_proof (host witness), cold and warm, verified and
+    pinned (EVM_WRAPPER_PROOF_SHA256), the keccak wrapper's proof, the
+    largest, traced for the idle share; then wrap_all_proof over those
+    circuits and the aggregate check of its proofs
+    (verify_recursive_all_proof).  Each wrapper's decoded public inputs
+    are the transcript's states, the CTL challenges, the table proof's
+    ctl_zs_last and trace cap; the memory wrapper refuses wrong CTL
+    challenges in its witness."""
+    import hashlib
+    import random
+    import torch
+    from plonky2_tpu_torch.evm import all_stark
+    from plonky2_tpu_torch.evm import recursive_verifier as erv
+    from plonky2_tpu_torch.field.goldilocks import P
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.utils.serialization import serialize_proof
+    config = StarkConfig.standard_fast_config()
+    astark = all_stark.make_all_stark()
+    t = time.perf_counter()
+    ctl_challenges, states = erv.replay_challenger_states(astark, evm_proof,
+                                                          config)
+    replay_s = time.perf_counter() - t
+    log(f"  EVM transcript replayed on the host in {replay_s:.3f} s")
+
+    def public_inputs_check(name, i, proof):
+        tproof = evm_proof.stark_proofs[i]
+        pi = erv.PublicInputs.from_vec(proof.public_inputs, config)
+        check(pi.ctl_challenges == ctl_challenges
+              and pi.challenger_state_before == states[i][0]
+              and pi.challenger_state_after == states[i][1]
+              and pi.ctl_zs_last == [int(v) for v in
+                                     tproof.openings.ctl_zs_last]
+              and pi.trace_cap == [[int(x) for x in h]
+                                   for h in tproof.trace_cap.digests],
+              f"the {name} wrapper's public inputs are not the proof's")
+
+    tables, circuits = {}, {}
+    for i, (tstark, tproof, db) in enumerate(zip(
+            astark.starks, evm_proof.stark_proofs, evm_proof.degree_bits)):
+        name = type(tstark).__name__
+        timer = StageTimer()
+        t = time.perf_counter()
+        wc = erv.recursive_stark_circuit(tstark, astark.cross_table_lookups,
+                                         i, db, config, timing=timer)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        compile_ms = timer.ms["quotient program"]
+
+        def prove(rng, timing=None, wc=wc, tproof=tproof, i=i):
+            return erv.wrap_table_proof(wc, tproof, states[i][0],
+                                        ctl_challenges, rng=rng,
+                                        timing=timing)
+        res, proof = wrap_session(
+            f"{name} wrapper (2^{db}-row table)", wc.session, compile_ms,
+            erv.table_witness(wc, tproof, states[i][0], ctl_challenges),
+            EVM_WRAPPER_PROOF_SHA256[name], build_s, trace=not i,
+            prove=prove)
+        public_inputs_check(name, i, proof)
+        tables[name] = res
+        circuits[i] = wc
+    check(len({tuple(g.id() for g in wc.data.common.gates)
+               for wc in circuits.values()}) == 1,
+          "the four EVM wrappers' gate sets differ")
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    wrapped, out = erv.wrap_all_proof(astark, evm_proof, config,
+                                      circuits=circuits,
+                                      rng=random.Random(0))
+    torch.cuda.synchronize()
+    all_s = time.perf_counter() - t
+    check(all(wc is circuits[i] for i, wc in enumerate(out)),
+          "wrap_all_proof built circuits of its own")
+    shas = [hashlib.sha256(serialize_proof(p)).hexdigest() for p in wrapped]
+    first = type(astark.starks[0]).__name__
+    check(shas[0] == EVM_WRAPPER_PROOF_SHA256[first],
+          f"wrap_all_proof's {first} proof ({shas[0]}) is not the pinned "
+          f"{EVM_WRAPPER_PROOF_SHA256[first]}")
+    for i, proof in enumerate(wrapped):
+        public_inputs_check(type(astark.starks[i]).__name__, i, proof)
+    log(f"  wrap_all_proof over the four circuits (one random.Random(0) "
+        f"for the four witnesses): {all_s:.3f} s; proofs' sha256 {shas}")
+    t = time.perf_counter()
+    erv.verify_recursive_all_proof(wrapped, out, astark.cross_table_lookups,
+                                   config)
+    aggregate_s = time.perf_counter() - t
+    log(f"  the aggregate check (one CTL challenge set, the chained "
+        f"transcript states, the CTL products) and the four wrapper "
+        f"proofs' verifier: {aggregate_s:.3f} s")
+    mem = all_stark.MEMORY
+    bad = type(ctl_challenges)(challenges=[
+        type(c)(beta=(c.beta + 1) % P, gamma=c.gamma)
+        for c in ctl_challenges.challenges])
+    why = refused(lambda: erv.wrap_table_proof(
+        circuits[mem], evm_proof.stark_proofs[mem], states[mem][0], bad,
+        rng=random.Random(0)), ValueError, "set twice with different values")
+    check(why is not None, "the memory wrapper accepted wrong CTL "
+          "challenges")
+    log(f"  ... the memory wrapper refuses wrong CTL challenges "
+        f"({why[:160]})")
+    setup_s = sum(r["build_s"] for r in tables.values()) + sum(
+        r["runs"][0]["stages_ms"].get("witness", 0.0) / 1e3
+        for r in tables.values())
+    log(f"  the four wrappers' builds (sessions included) and cold host "
+        f"witnesses: {setup_s:.3f} s")
+    res = merge_paths(list(tables.values()))
+    res.update(tables=tables, replay_s=replay_s, aggregate_s=aggregate_s,
+               wrap_all_s=all_s, evm_setup_s=setup_s)
+    return res
+
+
+def phase_tree(dev) -> dict:
+    """Tree recursion (plonk/tree_recursion.py), tests/test_tree_
+    recursion.py:24-61's tree (models/recursion_tree.py) at depth 2 under
+    standard_recursion_config:
+    the inner Fibonacci circuit and its proof, the shared common data
+    (common_data_for_recursion(config, 5, 2)), the leaf circuit and four
+    leaf proofs over the inner proof, the node circuit and two node
+    proofs over pairs of leaves, and the root over the nodes, each through
+    ProverSession on the card (the first of each circuit cold), verified,
+    checked by check_tree_proof_verifier_data and pinned
+    (TREE_PROOF_SHA256); the root proved a second time repeats its
+    proof."""
+    import hashlib
+    import random
+    import torch
+    from plonky2_tpu_torch.iop import device_witness as dw
+    from plonky2_tpu_torch.iop.witness import PartialWitness
+    from plonky2_tpu_torch.models.recursion_tree import (build_tree_circuits,
+                                                         tree_witnesses)
+    from plonky2_tpu_torch.plonk import tree_recursion as tr
+    from plonky2_tpu_torch.runtime.session import ProverSession
+    from plonky2_tpu_torch.utils.serialization import serialize_proof
+    builds = {}
+
+    def timed_build(name, make):
+        t = time.perf_counter()
+        out = make()
+        torch.cuda.synchronize()
+        builds[name] = time.perf_counter() - t
+        return out
+
+    tree = build_tree_circuits(stage=timed_build)
+    inner, inner_pw, common = tree["inner"], tree["inner_pw"], tree["common"]
+    leaf, node = tree["leaf"], tree["node"]
+    log(f"  built on the card: the inner circuit (2^"
+        f"{inner.common.degree_bits()} rows) in {builds['inner']:.3f} s, "
+        f"the common data (three builds, nothing committed) in "
+        f"{builds['common data']:.3f} s, the leaf and node circuits (2^"
+        f"{common.degree_bits()} rows) in {builds['leaf']:.3f} and "
+        f"{builds['node']:.3f} s")
+    sessions = {}
+    for name, data in (("inner", inner), ("leaf", leaf), ("node", node)):
+        timer = StageTimer()
+        sessions[name] = ProverSession(data, timing=timer)
+        note_program(sessions[name].prover_data.program, dev)
+        log(f"  {name} session: quotient program compiled in "
+            f"{timer.ms['quotient program']:.3f} ms: "
+            f"{k6_form_of(sessions[name])}")
+    inner_plan = dw.build_plan(inner.prover_only, inner.common, inner_pw,
+                               dev) is not None
+    check(dw.build_plan(leaf.prover_only, leaf.common, PartialWitness(),
+                        dev) is None, "the witness plan took the leaf")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    runs = []
+
+    def run(name, data, pw, seed, want):
+        timer = StageTimer()
+        t = time.perf_counter()
+        proof = sessions[name].prove(pw, rng=random.Random(seed),
+                                     timing=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        t = time.perf_counter()
+        data.verify(proof)
+        if name != "inner":
+            tr.check_tree_proof_verifier_data(proof, data.verifier_only,
+                                              common)
+        verify_s = time.perf_counter() - t
+        blob = serialize_proof(proof)
+        sha = hashlib.sha256(blob).hexdigest()
+        wit = timer.ms.get("witness", timer.ms.get("device witness", 0.0))
+        first = not any(r["circuit"] == name for r in runs)
+        runs.append({"circuit": name, "seed": seed, "wall_s": wall,
+                     "witness_s": wit / 1e3, "verify_s": verify_s,
+                     "bytes": len(blob), "sha256": sha, "cold": first,
+                     "stages_ms": timer.ms})
+        log(f"  {name} (random.Random({seed})) prove "
+            f"{'cold' if first else 'warm'}: {wall:.4f} s (witness "
+            f"{wit / 1e3:.4f} s); verify and verifier data {verify_s:.3f} s;"
+            f" proof {len(blob)} bytes, sha256 {sha}")
+        check(sha == want, f"the {name} proof ({sha}) is not the pinned "
+              f"{want}")
+        return proof
+
+    want = TREE_PROOF_SHA256
+    inner_proof = run("inner", inner, inner_pw, 0, want["inner"])
+    leaf_pw, node_pw = tree_witnesses(tree, inner_proof)
+    leaves = [run("leaf", leaf, leaf_pw(), i, want["leaf"][i])
+              for i in range(4)]
+    nodes = [run("node", node, node_pw(*leaves[2 * j:2 * j + 2]), 4 + j,
+                 want["node"][j]) for j in range(2)]
+    root_pw = node_pw(*nodes)
+    root = run("node", node, root_pw, 6, want["root"])
+    launches = read_launch_counts()
+    for entry in recursion_path(node):
+        check(launches[entry] > 0, f"{entry} was not launched on the tree")
+    peak = torch.cuda.max_memory_allocated()
+    with KernelRecorder() as rec:
+        again = run("node", node, root_pw, 6, want["root"])
+    check(serialize_proof(again) == serialize_proof(root),
+          "the root proved again is another proof")
+    log(f"  the root proved again repeats its proof; peak "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB; launches {launches}"
+        f"; the inner proof's witness from the "
+        f"{'device plan' if inner_plan else 'host engine'}")
+    profile = profile_run(lambda: sessions["node"].prove(
+        root_pw, rng=random.Random(6)), warmup=False)
+    cold = [r for r in runs if r["cold"]]
+    warm = [r for r in runs if not r["cold"]]
+    return {"launches": launches, "kernel_ms": rec.ms_by_kernel(),
+            "cost": path_cost(rec.records, pow_witness_of(again)),
+            "cold_s": sum(r["wall_s"] for r in cold),
+            "warm_s": [r["wall_s"] for r in warm], "peak_bytes": peak,
+            "profile": profile, "build_s": builds,
+            "degree_bits": common.degree_bits(), "runs": runs}
+
+
+def phase_gate_set(dev) -> dict:
+    """The U32, comparison and permutation gate set (gates/u32_gates.py,
+    assert_le.py, switch.py, insertion.py; gadgets/u32.py,
+    permutation.py) in models/gate_set.py's circuit of 2^LOG_N rows under
+    standard_ecc_config, built on the card, proved cold and warm through
+    ProverSession (host witness), verified, every proof the pinned
+    GATE_SET_PROOF_SHA256 (the port's CPU proof); then a non-permutation,
+    which the routing refuses in the witness."""
+    import random
+    import torch
+    from plonky2_tpu_torch.models import gate_set
+    from plonky2_tpu_torch.runtime.session import ProverSession
+    t = time.perf_counter()
+    data, pw = gate_set.build_gate_set_circuit()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    check(data.common.degree_bits() == gate_set.LOG_N,
+          f"the gate set has 2^{data.common.degree_bits()} rows")
+    gates = [g.id().split(" ")[0] for g in data.common.gates]
+    log(f"  {len(gates)} gate types: {gates}")
+    sess, compile_ms = new_session(data)
+    res, _ = wrap_session("gate set", sess, compile_ms, pw,
+                          GATE_SET_PROOF_SHA256, build_s)
+    bad, bad_pw = gate_set.build_non_permutation_circuit()
+    why = refused(lambda: ProverSession(bad).prove(bad_pw,
+                                                   rng=random.Random(0)),
+                  ValueError, "permutations of one another")
+    check(why is not None, "a non-permutation was not refused")
+    log(f"  ... and a non-permutation is refused ({why[:160]})")
+    res.update(gates=gates)
     return res
 
 
@@ -3139,10 +3610,19 @@ def kernels_line(kern, paths, smi, waves) -> dict:
                            record_session=paths["session"]["k8_record"])
         if key == "K9":
             # its permutations one after another, each one 4-lane
-            # permutation's latency (phase 3c)
-            n = paths["session"]["cost"]["plk_sponge"][1] // PERM_MULS
-            out[-1].update(session_permutations=n,
-                           latency_floor_ms=n * waves["perm_latency_ms"])
+            # permutation's latency (phase 3c), on each path
+            n = {}
+            for k, p in paths.items():
+                if p["launches"]["plk_sponge"]:
+                    check("plk_sponge" in p["cost"], f"the {k} path "
+                          "launched K9 and its recorder has no K9 cost")
+                    n[k] = p["cost"]["plk_sponge"][1] // PERM_MULS
+            out[-1].update(
+                session_permutations=n["session"],
+                latency_floor_ms=n["session"] * waves["perm_latency_ms"],
+                permutations_by_path=n,
+                latency_floor_ms_by_path={
+                    k: v * waves["perm_latency_ms"] for k, v in n.items()})
     return {"kernels": out, "card": smi}
 
 
@@ -3202,6 +3682,7 @@ def main() -> int:
                "sponge, logic, memory with live CTLs), proved and "
                "verified"):
         paths["evm"] = phase_evm(dev)
+    evm_proof = paths["evm"].pop("proof")
     torch.cuda.empty_cache()
     with phase(f"9f the Fibonacci STARK at 2^{FIB_LOG_N} rows, proved and "
                "verified"):
@@ -3215,6 +3696,23 @@ def main() -> int:
                "rows, single and double recursion, compression, "
                f"{CYCLIC_STEPS} links of a cyclic chain"):
         paths["recursion"] = phase_recursion(dev)
+    torch.cuda.empty_cache()
+    with phase(f"9i wrapping: the Fibonacci STARK proof of 2^{FIB_LOG_N} "
+               f"rows and the {EVM_OPS}-op EVM proof's four tables, each in "
+               "a circuit, proved and verified, the aggregate checked"):
+        fib = phase_wrap_fib(dev)
+        torch.cuda.empty_cache()
+        evm = phase_wrap_evm(dev, evm_proof)
+        paths["wrap"] = dict(evm, **merge_paths([fib, evm]), fib=fib)
+    del evm_proof, fib, evm
+    torch.cuda.empty_cache()
+    with phase("9j tree recursion: four leaves, two nodes and the root, "
+               "proved and verified"):
+        paths["tree"] = phase_tree(dev)
+    torch.cuda.empty_cache()
+    with phase("9k the U32, comparison and permutation gate set at 2^14 "
+               "rows, proved and verified"):
+        paths["gate_set"] = phase_gate_set(dev)
     with phase("10 kernels line"):
         line = kernels_line(kern, paths, smi, waves)
         line["narrow_levels"] = narrow
@@ -3232,7 +3730,10 @@ def main() -> int:
                       "build_stages_ms", "gates", "n_gates", "trace_gen_s",
                       "shapes", "programs", "verify_s", "links",
                       "double_bytes", "double_compressed_bytes",
-                      "compress_s", "decompress_s", "cyclic"):
+                      "compress_s", "decompress_s", "cyclic", "fib",
+                      "tables", "replay_s", "aggregate_s", "wrap_all_s",
+                      "evm_setup_s",
+                      "degree_bits"):
                 if f in p:
                     line["paths"][k][f] = p[f]
     with phase("11 int32 multiply rate and field-product SASS"):

@@ -113,6 +113,24 @@ class RecursiveChallenger:
         self.input_buffer: list = []
         self.output_buffer: list = []
 
+    @classmethod
+    def from_state(cls, builder, state_targets):
+        """Resume a transcript in the circuit from a compacted sponge state
+        (reference challenger.rs from_state, as the EVM tables' wrappers
+        use it)."""
+        if len(state_targets) != pos.WIDTH:
+            raise ValueError(f"a sponge state has {pos.WIDTH} targets")
+        ch = cls(builder)
+        ch.sponge_state = list(state_targets)
+        return ch
+
+    def compact(self, builder):
+        """Absorb the pending inputs and return the sponge state's
+        targets: the host Challenger.compact's point of the transcript."""
+        self._absorb_buffered(builder)
+        self.output_buffer.clear()
+        return list(self.sponge_state)
+
     def observe_element(self, target) -> None:
         self.output_buffer.clear()
         self.input_buffer.append(target)

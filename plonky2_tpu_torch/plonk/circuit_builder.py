@@ -11,11 +11,14 @@ fri/oracle.py:PolynomialBatch.from_values (kernels K3, K5, K1 and K2 on a
 card).  It takes the JAX builder's gadget mixins for the extension field
 (gadgets/extension.py), bit splits, exponentiation and random access
 (gadgets/split.py), coset interpolation (gates/interpolation.py), Merkle
-proofs (gadgets/merkle.py), the FRI and PLONK verifiers in the circuit
-(fri/recursive_verifier.py, plonk/recursive_verifier.py) and conditional
-and cyclic recursion (plonk/recursion.py), with the cyclic-recursion goal;
-its u32, big-integer, ECDSA, permutation and tree-recursion mixins are
-ROADMAP 15c.
+proofs (gadgets/merkle.py), u32 arithmetic and comparison
+(gadgets/u32.py), insertion (gates/insertion.py), permutation networks and
+sorting (gadgets/permutation.py), the FRI and PLONK verifiers in the
+circuit (fri/recursive_verifier.py, plonk/recursive_verifier.py),
+conditional and cyclic recursion (plonk/recursion.py), with the
+cyclic-recursion goal, and tree recursion (plonk/tree_recursion.py), in
+the JAX builder's order; its big-integer, non-native and ECDSA mixins are
+ROADMAP 15c.1.
 """
 from __future__ import annotations
 
@@ -29,10 +32,13 @@ from ..fri.oracle import PolynomialBatch
 from ..fri.recursive_verifier import FriRecursiveGadgets
 from ..gadgets.extension import ExtensionGadgets
 from ..gadgets.merkle import MerkleGadgets
+from ..gadgets.permutation import PermutationGadgets
 from ..gadgets.split import SplitGadgets
+from ..gadgets.u32 import U32Gadgets
 from ..gates.basic import (ArithmeticGate, ConstantGate, NoopGate,
                            PublicInputGate)
 from ..gates.gate import Gate, selector_polynomials
+from ..gates.insertion import InsertionGadgets
 from ..gates.interpolation import InterpolationGadgets
 from ..gates.poseidon_gate import (WIRE_SWAP, PoseidonGate, wire_input,
                                    wire_output)
@@ -48,6 +54,7 @@ from .config import CircuitConfig
 from .permutation import Forest
 from .recursion import ConditionalRecursionGadgets
 from .recursive_verifier import RecursionGadgets
+from .tree_recursion import TreeRecursionGadgets
 
 
 class GateInstance:
@@ -58,9 +65,11 @@ class GateInstance:
         self.constants = constants
 
 
-class CircuitBuilder(ExtensionGadgets, SplitGadgets, MerkleGadgets,
-                     InterpolationGadgets, FriRecursiveGadgets,
-                     RecursionGadgets, ConditionalRecursionGadgets):
+class CircuitBuilder(ExtensionGadgets, SplitGadgets, U32Gadgets,
+                     MerkleGadgets, InterpolationGadgets, InsertionGadgets,
+                     PermutationGadgets, FriRecursiveGadgets,
+                     RecursionGadgets, ConditionalRecursionGadgets,
+                     TreeRecursionGadgets):
     def __init__(self, config: CircuitConfig):
         self.config = config
         self.gate_set: Dict[str, Gate] = {}

@@ -2,8 +2,8 @@
 plonky2_tpu/stark/testing.py (reference starky/src/stark_testing.rs:23):
 the low-degree check of a constraint set and the row-wise check of a
 generated trace, on the host (numpy uint64 values, the plain FFT of
-field/fft.py).  ``test_stark_circuit_constraints`` needs the recursion
-set of the circuit builder and is not ported yet."""
+field/fft.py), and the check that the constraints evaluated in a circuit
+agree with the host's (the one function here that proves, on `device`)."""
 from __future__ import annotations
 
 import numpy as np
@@ -12,7 +12,7 @@ import torch
 from ..field import fft
 from ..field import goldilocks as gl
 from ..field.convert import from_u64, to_u64
-from ..plonk.algebra import NumpyBatch
+from ..plonk.algebra import CircuitExtAlgebra, NumpyBatch, ScalarExt
 from ..utils.bits import log2_ceil, log2_strict
 from .stark import ConstraintConsumer, Stark, StarkEvaluationVars
 
@@ -69,6 +69,60 @@ def test_stark_low_degree(stark: Stark, rng=None) -> None:
     if degree > maximum:
         raise AssertionError(f"constraint composition has degree {degree}, "
                              f"exceeding the claimed bound {maximum}")
+
+
+def test_stark_circuit_constraints(stark: Stark, rng=None,
+                                   device=None) -> None:
+    """The constraints evaluated at random points on the host agree with
+    the same evaluation emitted as gates by the circuit algebra: a circuit
+    that connects the two is proved on `device` (default cuda) and
+    verified (reference stark_testing.rs:81-157)."""
+    from ..iop.witness import PartialWitness
+    from ..plonk.circuit_builder import CircuitBuilder
+    from ..plonk.config import CircuitConfig
+    from ..runtime.session import ProverSession
+
+    rng = rng or np.random.default_rng(0x57A13)
+
+    def rand_ext():
+        return (int(rng.integers(0, gl.P, dtype=np.uint64)),
+                int(rng.integers(0, gl.P, dtype=np.uint64)))
+
+    local = [rand_ext() for _ in range(stark.COLUMNS)]
+    nxt = [rand_ext() for _ in range(stark.COLUMNS)]
+    pis = [rand_ext() for _ in range(stark.PUBLIC_INPUTS)]
+    alpha = int(rng.integers(0, gl.P, dtype=np.uint64))
+    z_last, l_first, l_last = rand_ext(), rand_ext(), rand_ext()
+
+    alg = ScalarExt()
+    consumer = ConstraintConsumer(alg, [(alpha, 0)], z_last, l_first, l_last)
+    stark.eval(alg, StarkEvaluationVars(local, nxt, pis), consumer)
+    native_eval = consumer.accumulators()[0]
+
+    builder = CircuitBuilder(CircuitConfig.standard_recursion_config())
+    pw = PartialWitness()
+    calg = CircuitExtAlgebra(builder)
+
+    def virt_exts(values):
+        ts = builder.add_virtual_extension_targets(len(values))
+        pw.set_extension_targets(ts, values)
+        return ts
+
+    locals_t, nexts_t, pis_t = virt_exts(local), virt_exts(nxt), virt_exts(pis)
+    alpha_t = builder.add_virtual_target()
+    pw.set_target(alpha_t, alpha)
+    (z_last_t,), (l_first_t,), (l_last_t,) = \
+        virt_exts([z_last]), virt_exts([l_first]), virt_exts([l_last])
+
+    c_consumer = ConstraintConsumer(
+        calg, [builder.convert_to_ext(alpha_t)], z_last_t, l_first_t, l_last_t)
+    stark.eval(calg, StarkEvaluationVars(locals_t, nexts_t, pis_t), c_consumer)
+    circuit_eval = c_consumer.accumulators()[0]
+    builder.connect_extension(circuit_eval,
+                              builder.constant_extension(native_eval))
+
+    session = ProverSession(builder.build(device), device)
+    session.verify(session.prove(pw))
 
 
 def trace_constraint_violations(stark: Stark, trace: np.ndarray,

@@ -310,6 +310,23 @@ def proof_to_plain(obj):
     return walk(obj), arrays
 
 
+def proof_from_plain(skeleton, arrays, classes: dict):
+    """proof_to_plain's inverse: the dataclass tree, each {"class"} built
+    from `classes` (class name -> class)."""
+    def walk(x):
+        if isinstance(x, dict):
+            if "class" in x:
+                return classes[x["class"]](**{k: walk(v) for k, v in
+                                              x["fields"].items()})
+            if "tuple" in x:
+                return tuple(walk(v) for v in x["tuple"])
+            return arrays[x["array"]]
+        if isinstance(x, list):
+            return [walk(v) for v in x]
+        return x
+    return walk(skeleton)
+
+
 def proof_words(obj):
     """Every number of a proof's dataclass tree (lists, tuples, arrays,
     ints), in order; None fields are skipped."""

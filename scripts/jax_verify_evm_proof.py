@@ -23,6 +23,9 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+from plonky2_tpu_torch.utils.serialization import \
+    proof_from_plain as from_plain  # noqa: E402
+
 
 def jax_classes() -> dict:
     from plonky2_tpu.evm import proof as ep
@@ -32,21 +35,6 @@ def jax_classes() -> dict:
         merkle.MerkleCap, merkle.MerkleProof, fp.FriProof, fp.FriQueryRound,
         fp.FriQueryStep, fp.FriInitialTreeProof, ep.AllProof,
         ep.EvmStarkProof, ep.EvmStarkOpeningSet)}
-
-
-def from_plain(skeleton, arrays, classes):
-    def walk(x):
-        if isinstance(x, dict):
-            if "class" in x:
-                return classes[x["class"]](**{k: walk(v) for k, v in
-                                              x["fields"].items()})
-            if "tuple" in x:
-                return tuple(walk(v) for v in x["tuple"])
-            return arrays[x["array"]]
-        if isinstance(x, list):
-            return [walk(v) for v in x]
-        return x
-    return walk(skeleton)
 
 
 def main() -> int:

@@ -318,10 +318,36 @@ def recursion_program():
     return build_quotient_program(data.common)
 
 
-@pytest.mark.parametrize("make", [system_zero_program, recursion_program])
+def fib_wrapper_program():
+    """The Fibonacci STARK wrapper's quotient program (models/
+    stark_wrapper.py: the STARK verifier in a circuit), at 2^10 rows."""
+    from plonky2_tpu_torch.models.fibonacci_stark import FibonacciStark
+    from plonky2_tpu_torch.models.stark_wrapper import stark_wrapper_builder
+    from plonky2_tpu_torch.plonk.quotient_program import \
+        build_quotient_program
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    b, _ = stark_wrapper_builder(FibonacciStark(1 << 10),
+                                 StarkConfig.standard_fast_config(), 10)
+    return build_quotient_program(b.build_common())
+
+
+def gate_set_program():
+    """The U32, comparison and permutation gate set's quotient program
+    (models/gate_set.py, at a few copies of each block)."""
+    from plonky2_tpu_torch.models.gate_set import build_gate_set_circuit
+    from plonky2_tpu_torch.plonk.quotient_program import \
+        build_quotient_program
+    common, _ = build_gate_set_circuit(build=False, memory_ops=16, chunks=16,
+                                       inserts=2, u32_blocks=2)
+    return build_quotient_program(common)
+
+
+@pytest.mark.parametrize("make", [system_zero_program, recursion_program,
+                                  fib_wrapper_program, gate_set_program])
 def test_constraint_program_kernel_system_zero_and_recursion(dev, make):
     """K6 on System Zero's quotient program (its eval and permutation
-    checks) and on a recursion circuit's, against the plain version."""
+    checks), on a recursion circuit's, on the Fibonacci wrapper's and on
+    the U32 and permutation gate set's, against the plain version."""
     prog = make()
     rng = np.random.default_rng(12)
     inputs = _rand((prog.n_inputs, 4096 + 37), 12, dev)
