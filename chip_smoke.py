@@ -82,16 +82,27 @@ whole proof after the witness:
   models/gate_set.py): sorted memory operations, a permutation,
   insertions and u32 arithmetic filling 2^14 rows under
   standard_ecc_config, proved, pinned to the port's CPU proof, a
-  non-permutation refused.  Phases 9c-9k run EARLIER_WARM_RUNS warm
+  non-permutation refused;
+* secp256k1 ECDSA verification in a circuit (phase 9l,
+  models/ecdsa_verify.py: the big-integer, non-native and curve gadgets,
+  98,660 gates, 2^17 rows under standard_ecc_config), built on the card,
+  proved through ProverSession (host witness), pinned, the signature
+  checked natively, a changed opening refused;
+* the EVM's 256-bit arithmetic table with its 16-bit range check (phase
+  9m, evm/arithmetic.py: 41,692 ops in 2^16 rows, 237 columns, 48
+  lookups) under standard_fast_config, each output held against its
+  Python int, proved, pinned to the port's CPU proof, a wrong product and
+  a limb of 2^16 refused.  Phases 9c-9m run EARLIER_WARM_RUNS warm
   proofs.
 
 The script builds the kernels from csrc/ with nvcc (one process per
 source, in parallel), holds each kernel, in each of its forms (K3 and K5
 down the columns and along the rows; K6 on the flagship's program, the
 gate mix's, one of more slots than shared memory holds, the EVM keccak
-table's, System Zero's, the single-recursion circuit's, the wrappers'
-and the gate set's), against its plain PyTorch version on the card (exact equality: integer arithmetic,
-tolerance 0), runs each path
+table's, System Zero's, the single-recursion circuit's, the wrappers',
+the gate set's, the ECDSA circuit's and the arithmetic table's), against
+its plain PyTorch version on the card (exact equality: integer
+arithmetic, tolerance 0), runs each path
 at full width with its launch counts set to 0 just before and read just
 after, holds the full-width results against the plain versions on subsets,
 verifies the openings and every FRI query path, and prints one JSON line
@@ -267,7 +278,21 @@ TREE_PROOF_SHA256 = {
 # (scripts/port_aggregation_proofs.py --device cpu)
 GATE_SET_PROOF_SHA256 = ("66189c9cff009594109362e33c16762c29a0ac1334defcc7"
                          "ee1b2f2e3f783b2b")
-# phases 9c-9k run fewer warm proofs than the others, which keeps the
+# Phase 9l: tests/test_ecdsa_verify.py's secp256k1 ECDSA verification
+# (models/ecdsa_verify.py, 256-bit scalars) under standard_ecc_config:
+# 98,660 gates placed, 2^17 rows; its proof from random.Random(0) is the
+# card's (the port's CPU build commits 2^20 LDE rows with the plain
+# versions for many minutes), which the warm run and a second call repeat
+ECDSA_PROOF_SHA256 = ("d7cb0b755eb6d52f4db6a15f705ca5161a193f0699f24260406c4"
+                      "6c6753ed340")
+# Phase 9m: ArithmeticStark(range_check=True) on evm/workload.py:
+# arithmetic_ops() (41,692 ops in 65,516 of 2^16 rows, 237 columns) under
+# standard_fast_config; its proof the port's CPU proof
+# (scripts/port_ecdsa_arithmetic_proofs.py --device cpu --parts
+# arithmetic)
+ARITHMETIC_PROOF_SHA256 = ("a7ce359735ca320d316ad27c01409f62d19f7509e8480fd5"
+                           "27372d157ece7986")
+# phases 9c-9m run fewer warm proofs than the others, which keeps the
 # whole script inside its time limit since 9g-9k came
 EARLIER_WARM_RUNS = 1
 # the TPU kernels each STARK path must launch (K4 and K7 where they do)
@@ -986,14 +1011,15 @@ def single_recursion_program():
 
 
 def k6_programs(dev, rng, compare) -> dict:
-    """K6 on nine programs, each held against run_plain (exact) and
+    """K6 on eleven programs, each held against run_plain (exact) and
     timed at K6_TIMING_LANES lanes (CUDA events, the median of 3 launches
     after a warm-up): the flagship's, the gate mix's, a program of more
     slots than shared memory holds at 32 lanes a block
     (constraint_program.py:wide_program), the EVM keccak table's (about
     29,000 ops), System Zero's, the single-recursion circuit's, the
-    Fibonacci and EVM wrappers' (phase 9i) and the U32 and permutation
-    gate set's (9k).  Per
+    Fibonacci and EVM wrappers' (phase 9i), the U32 and permutation gate
+    set's (9k), the ECDSA circuit's (9l) and the range-checked arithmetic
+    table's (9m).  Per
     program its form (lanes a block, slots in shared memory and spilled),
     ms a launch and ns a lane."""
     from plonky2_tpu_torch.field.convert import from_u64
@@ -1007,7 +1033,9 @@ def k6_programs(dev, rng, compare) -> dict:
              "system zero": system_zero_program(),
              "single recursion": single_recursion_program(),
              **wrapper_programs(),
-             "gate set": gate_set_program()}
+             "gate set": gate_set_program(),
+             "ECDSA circuit": ecdsa_program(),
+             "arithmetic table": arithmetic_program()}
     out = {}
     for name, prog in progs.items():
         lin = cp.linearize(prog)
@@ -1652,23 +1680,24 @@ def time_stages(out, values, wires_batch, sigmas, shape, challenges):
     return res
 
 
-def profile_run(fn, warmup: bool = True) -> dict:
-    """Device busy time (sum of kernel times from torch.profiler) against
-    the wall time of one traced fn(), after one untraced fn() unless the
-    caller has just run it (`warmup` False)."""
+@contextlib.contextmanager
+def device_trace(out: dict):
+    """Trace the card's activity over the block with torch.profiler and
+    put in `out` its wall, the device's busy time (the sum of its kernel,
+    copy and memset times) and the copies.  Only the device's activity
+    is traced: the host's torch ops would add their recording to the
+    traced wall and their events to the summary (on a STARK proof, twice
+    the events and their processing time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    if warmup:
-        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        fn()
+        yield
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     # rows of work that ran on the card (kernels, copies, memsets); the
-    # host-side ops that launched them are not counted again
+    # runtime calls that launched them are not counted
     dev_ms = lambda e: getattr(  # noqa: E731
         e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)
     ) / 1e3
@@ -1686,7 +1715,18 @@ def profile_run(fn, warmup: bool = True) -> dict:
         f"{busy_ms:.3f} ms, idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms):.3f}" if busy_ms else
         "  profile: torch.profiler recorded no device time")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "copies": copies}
+    out.update(wall_ms=wall_ms, busy_ms=busy_ms, copies=copies)
+
+
+def profile_run(fn, warmup: bool = True) -> dict:
+    """device_trace of one fn(), after one untraced fn() unless the
+    caller has just run it (`warmup` False)."""
+    if warmup:
+        fn()
+    out = {}
+    with device_trace(out):
+        fn()
+    return out
 
 
 def sweep_chunks(out, wires_batch, challenges):
@@ -2477,12 +2517,14 @@ def prove_session(sess, pw, path, label, want_sha, device_witness,
     """ProverSession.prove of `pw` (or `prove(rng, timing)`, an entry
     point that proves in `sess`): one cold run (launch counts set to 0
     just before and read just after; every kernel of `path` launched) and
-    `warm_runs` warm runs (timed per kernel), each from random.Random(0)
+    `warm_runs` warm runs (timed per kernel; with none, the cold run is
+    timed per kernel), each from random.Random(0)
     and each verified with the port's verifier; every proof's sha256 must
     be `want_sha`.  The witness comes from the device plan (stage "device
     witness", K7) when `device_witness`, else from the host engine (stage
-    "witness").  Returns the path's numbers (the traced idle share of one
-    more warm run included, where `trace`) and the proof."""
+    "witness").  Where `trace`, the last run is traced for the idle share
+    (device_trace; the card's activity only, so the run's wall moves
+    little).  Returns the path's numbers and the proof."""
     import hashlib
     import random
     import torch
@@ -2494,11 +2536,15 @@ def prove_session(sess, pw, path, label, want_sha, device_witness,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    runs, recs = [], None
+    runs, recs, profile = [], None, None
     for i in range(1 + warm_runs):
         timer = StageTimer()
         with contextlib.ExitStack() as stack:
-            rec = stack.enter_context(KernelRecorder()) if i else None
+            rec = stack.enter_context(KernelRecorder()) \
+                if i or not warm_runs else None
+            if trace and i == warm_runs:
+                profile = {}
+                stack.enter_context(device_trace(profile))
             t = time.perf_counter()
             proof = prove(random.Random(0), timer)
             torch.cuda.synchronize()
@@ -2508,7 +2554,7 @@ def prove_session(sess, pw, path, label, want_sha, device_witness,
             for entry in path:
                 check(launches[entry] > 0,
                       f"{entry} was not launched on the {label}")
-        else:
+        if rec is not None:
             recs = rec.records
         want, other = (("device witness", "witness") if device_witness
                        else ("witness", "device witness"))
@@ -2532,19 +2578,18 @@ def prove_session(sess, pw, path, label, want_sha, device_witness,
     peak = torch.cuda.max_memory_allocated()
     log_stages(timer, runs[-1]["wall_s"])
     log(f"  {label}: peak max_memory_allocated {peak / 2**30:.3f} GiB")
-    profile = (profile_run(lambda: prove(random.Random(0)), warmup=False)
-               if trace else None)
     shas = {r["sha256"] for r in runs}
     check(shas == {want_sha}, f"the {label}'s proofs ({shas}) are not the "
           f"pinned {want_sha}")
     log(f"  every {label} proof's sha256 is the pinned {want_sha}")
-    warm = runs[1:]
+    timed = runs[1:] or runs
     kernel_ms = {k: float(np.median([r["kernel_ms"].get(k, 0.0)
-                                     for r in warm]))
-                 for k in warm[-1]["kernel_ms"]}
+                                     for r in timed]))
+                 for k in timed[-1]["kernel_ms"]}
     for r in runs:
         del r["kernel_ms"]
-    return {"cold_s": runs[0]["wall_s"], "warm_s": [r["wall_s"] for r in warm],
+    return {"cold_s": runs[0]["wall_s"],
+            "warm_s": [r["wall_s"] for r in runs[1:]],
             "launches": launches, "kernel_ms": kernel_ms,
             "cost": path_cost(recs, pow_witness_of(proof)),
             "peak_bytes": peak, "runs": runs, "profile": profile}, proof
@@ -2666,7 +2711,8 @@ def prove_stark_path(label, prove, keys, want_sha,
     one traced warm run for the idle share.  Returns (the path's numbers,
     the last proof)."""
     import torch
-    from plonky2_tpu_torch.utils.serialization import proof_sha256
+    from plonky2_tpu_torch.utils.serialization import (proof_sha256,
+                                                       proof_words)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -2688,15 +2734,17 @@ def prove_stark_path(label, prove, keys, want_sha,
         else:
             recs = rec.records
         runs.append({"wall_s": wall, "stages_ms": timer.ms,
+                     "bytes": 8 * sum(1 for _ in proof_words(proof)),
                      "sha256": proof_sha256(proof),
                      "kernel_ms": rec.ms_by_kernel() if rec else None})
         log(f"  {label} prove {'cold' if not i else 'warm'}: {wall:.4f} s; "
-            f"proof sha256 {runs[-1]['sha256']}")
+            f"proof {runs[-1]['bytes']} bytes (its words as u64s), sha256 "
+            f"{runs[-1]['sha256']}")
     peak = torch.cuda.max_memory_allocated()
     log_stages(timer, runs[-1]["wall_s"])
     log(f"  {label}: peak max_memory_allocated {peak / 2**30:.3f} GiB; "
         f"launches {launches}")
-    profile = profile_run(lambda: prove(None))
+    profile = profile_run(lambda: prove(None), warmup=False)
     shas = {r["sha256"] for r in runs}
     check(shas == {want_sha}, f"the {label}'s proofs ({shas}) are not the "
           f"pinned {want_sha}")
@@ -3077,6 +3125,25 @@ def gate_set_program():
     return build_quotient_program(build_gate_set_circuit(build=False)[0])
 
 
+def ecdsa_program():
+    """Phase 9l's quotient program (models/ecdsa_verify.py's circuit at
+    full width, from its common data: nothing committed)."""
+    from plonky2_tpu_torch.models.ecdsa_verify import ecdsa_builder
+    from plonky2_tpu_torch.plonk.quotient_program import \
+        build_quotient_program
+    return build_quotient_program(ecdsa_builder()[0].build_common())
+
+
+def arithmetic_program():
+    """Phase 9m's quotient program (the range-checked arithmetic table's
+    eval and its 96 permutation pairs)."""
+    from plonky2_tpu_torch.evm.arithmetic import ArithmeticStark
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.quotient_program import build_stark_program
+    return build_stark_program(ArithmeticStark(range_check=True),
+                               StarkConfig.standard_fast_config())
+
+
 def refused(fn, kinds, match: str) -> str:
     """The error that `fn()` raises, as text: it must be of `kinds` and
     its message must hold `match`; any other error goes up.  None if
@@ -3100,14 +3167,15 @@ def new_session(data) -> tuple:
 
 
 def wrap_session(label, sess, compile_ms, pw, want_sha, build_s,
-                 want_pis=None, trace=True, prove=None):
-    """A circuit of phases 9i-9k through its ProverSession `sess` on the
+                 want_pis=None, trace=True, prove=None,
+                 warm_runs=EARLIER_WARM_RUNS):
+    """A circuit of phases 9i-9l through its ProverSession `sess` on the
     card (its quotient program compiled in `compile_ms`): the device
     witness plan refused for `pw` (the host engine runs), one cold and
-    EARLIER_WARM_RUNS warm proofs of `pw`, or of `prove(rng, timing)`
-    where an entry point proves in `sess` (prove_session), then, where
-    `trace`, one traced proof right after them for the idle share;
-    returns (the path's numbers with the circuit's rows and build
+    `warm_runs` warm proofs of `pw`, or of `prove(rng, timing)`
+    where an entry point proves in `sess` (prove_session), the last of
+    them traced for the idle share where `trace`; returns (the path's
+    numbers with the circuit's rows and build
     seconds, the proof)."""
     from plonky2_tpu_torch.iop import device_witness as dw
     data = sess.data
@@ -3119,7 +3187,7 @@ def wrap_session(label, sess, compile_ms, pw, want_sha, build_s,
         f"{compile_ms:.3f} ms: {form}")
     res, proof = prove_session(sess, pw, recursion_path(data), label,
                                want_sha, False, want_pis=want_pis,
-                               warm_runs=EARLIER_WARM_RUNS, trace=trace,
+                               warm_runs=warm_runs, trace=trace,
                                prove=prove)
     res.update(build_s=build_s, degree_bits=data.common.degree_bits(),
                compile_ms=compile_ms, k6_form=form)
@@ -3179,10 +3247,11 @@ def phase_wrap_evm(dev, evm_proof) -> dict:
     evm/recursive_verifier.py's entry points: the transcript replayed on
     the host (replay_challenger_states); each table's wrapper built on the
     card with its session (recursive_stark_circuit) and proved in it
-    through wrap_table_proof (host witness), cold and warm, verified and
-    pinned (EVM_WRAPPER_PROOF_SHA256), the keccak wrapper's proof, the
-    largest, traced for the idle share; then wrap_all_proof over those
-    circuits and the aggregate check of its proofs
+    through wrap_table_proof (host witness), once (its kernels timed in
+    that run), verified and pinned (EVM_WRAPPER_PROOF_SHA256), the keccak
+    wrapper's proof, the largest, traced for the idle share; then
+    wrap_all_proof over those circuits, which proves each table's wrapper
+    again, and the aggregate check of its proofs
     (verify_recursive_all_proof).  Each wrapper's decoded public inputs
     are the transcript's states, the CTL challenges, the table proof's
     ctl_zs_last and trace cap; the memory wrapper refuses wrong CTL
@@ -3235,7 +3304,7 @@ def phase_wrap_evm(dev, evm_proof) -> dict:
             f"{name} wrapper (2^{db}-row table)", wc.session, compile_ms,
             erv.table_witness(wc, tproof, states[i][0], ctl_challenges),
             EVM_WRAPPER_PROOF_SHA256[name], build_s, trace=not i,
-            prove=prove)
+            prove=prove, warm_runs=0)
         public_inputs_check(name, i, proof)
         tables[name] = res
         circuits[i] = wc
@@ -3440,6 +3509,217 @@ def phase_gate_set(dev) -> dict:
     check(why is not None, "a non-permutation was not refused")
     log(f"  ... and a non-permutation is refused ({why[:160]})")
     res.update(gates=gates)
+    return res
+
+
+def phase_ecdsa(dev) -> dict:
+    """secp256k1 ECDSA verification in a circuit (ecdsa/gadgets.py over
+    gadgets/{biguint,nonnative,u32}.py): models/ecdsa_verify.py's circuit
+    at full width under standard_ecc_config, its gates placed and built
+    on the card (build()'s stages timed), the gate count and the rows
+    pinned, the signature checked natively (ecdsa/curve.py); proved cold
+    and warm through ProverSession (host witness), verified, every proof
+    the pinned ECDSA_PROOF_SHA256; a copy of the proof with one opened
+    wire changed refused by the verifier."""
+    import collections
+    import copy
+    import torch
+    from plonky2_tpu_torch.ecdsa import curve
+    from plonky2_tpu_torch.field.goldilocks import P
+    from plonky2_tpu_torch.iop.witness import PartialWitness
+    from plonky2_tpu_torch.models import ecdsa_verify
+    from plonky2_tpu_torch.plonk.verifier import ProofVerificationError
+    t = time.perf_counter()
+    b, inputs = ecdsa_verify.ecdsa_builder()
+    place_s = time.perf_counter() - t
+    n_gates = b.num_gates()
+    check(n_gates == ecdsa_verify.GATES, f"the ECDSA circuit placed "
+          f"{n_gates} gates, not {ecdsa_verify.GATES}")
+    gates = dict(collections.Counter(type(i.gate).__name__
+                                     for i in b.gate_instances))
+    check(curve.verify_message(inputs.msg, inputs.sig, inputs.pk),
+          "ecdsa/curve.py:verify_message refuses the signature")
+    log(f"  {n_gates} gates placed on the host in {place_s:.3f} s: "
+        f"{gates}; the signature verifies natively")
+    timer = StageTimer()
+    t = time.perf_counter()
+    data = b.build(timing=timer)
+    torch.cuda.synchronize()
+    build_s = place_s + time.perf_counter() - t
+    check(data.common.degree_bits() == ecdsa_verify.LOG_N,
+          f"the ECDSA circuit has 2^{data.common.degree_bits()} rows")
+    log("  build() stages (ms): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in timer.ms.items()))
+    sess, compile_ms = new_session(data)
+    res, proof = wrap_session("ECDSA circuit", sess, compile_ms,
+                              PartialWitness(), ECDSA_PROOF_SHA256, build_s)
+    bad = copy.deepcopy(proof)
+    bad.proof.openings.wires[0, 0] = (int(bad.proof.openings.wires[0, 0])
+                                      + 1) % P
+    why = refused(lambda: sess.verify(bad), ProofVerificationError,
+                  "vanishing polynomial check failed")
+    check(why is not None, "the verifier accepted an ECDSA proof with an "
+          "opened wire changed")
+    log(f"  ... and refuses a copy with one opened wire changed ({why})")
+    res.update(gates=gates, n_gates=n_gates, place_s=place_s,
+               build_stages_ms=timer.ms)
+    return res
+
+
+def arithmetic_outputs_ok(trace, ops) -> bool:
+    """Each op's output in the trace (its result, residue, quotient or
+    comparison bit) is its Python-int Operation.result."""
+    from plonky2_tpu_torch.evm import arithmetic as ar
+    rows = np.ascontiguousarray(trace[:ar.NUM_ARITH_COLUMNS].T)
+    shifts = [ar.LIMB_BITS * i for i in range(ar.N_LIMBS)]
+
+    def value(row, cols):
+        return sum(int(v) << k for v, k in zip(rows[row, cols.start:
+                                                    cols.stop], shifts))
+    j = 0
+    for op in ops:
+        if op.op in ("lt", "gt"):
+            got = int(rows[j, ar.CMP_OUTPUT])
+        elif op.op == "div":
+            got = value(j, ar.DIV_OUTPUT)
+        elif op.op in ar.MODULAR_OPS:
+            got = value(j, ar.MODULAR_OUTPUT)
+        else:
+            got = value(j, ar.GENERAL_INPUT_2)
+        if got != op.result:
+            return False
+        j += op.num_rows()
+    return True
+
+
+def forged_limb_trace(trace, ops) -> tuple:
+    """(row, a copy of the range-checked `trace`) with input0 of an add
+    written non-canonically: its low limb plus 2^16, the next limb less
+    one, the same 256-bit value (tests/test_evm_range_check.py:
+    _rc_forged_traces), and the masked and permuted lookup columns of
+    that limb recomputed, as a cheating prover would.  The add's carries
+    still hold; only the 16-bit range check can refuse it."""
+    from plonky2_tpu_torch.evm import arithmetic as ar
+    from plonky2_tpu_torch.system_zero.lookup import permuted_cols
+    j = 0
+    for op in ops:
+        a, b = ar.to_limbs(op.input0), ar.to_limbs(op.input1)
+        if op.op == "add" and a[0] + b[0] <= ar.MASK and a[1]:
+            break
+        j += op.num_rows()
+    else:
+        raise ValueError("no add without a carry from its low limb")
+    bad = trace.copy()
+    c0 = ar.GENERAL_INPUT_0.start
+    bad[c0, j] += np.uint64(ar.BASE)
+    bad[c0 + 1, j] -= np.uint64(1)
+    filt = bad[ar.CTL_OPS].sum(axis=0)
+    for i in (0, 1):
+        masked = np.where(filt != 0, bad[c0 + i], 0).astype(np.uint64)
+        bad[ar.rc_masked_col(i)] = masked
+        pi, pt = permuted_cols(masked, bad[ar.RANGE_COUNTER])
+        bad[ar.rc_perm_input_col(i)], bad[ar.rc_perm_table_col(i)] = pi, pt
+    return j, bad
+
+
+def constraint_count(stark) -> int:
+    """How many constraints `stark`'s eval yields."""
+    from plonky2_tpu_torch.plonk.algebra import ScalarBase
+    from plonky2_tpu_torch.stark.stark import StarkEvaluationVars
+
+    class Counter:
+        n = 0
+
+        def constraint(self, c):
+            self.n += 1
+        constraint_transition = constraint_first_row = \
+            constraint_last_row = constraint
+
+    count = Counter()
+    zeros = [0] * stark.COLUMNS
+    stark.eval(ScalarBase(), StarkEvaluationVars(zeros, zeros, []), count)
+    return count.n
+
+
+def phase_arithmetic(dev) -> dict:
+    """The EVM's 256-bit arithmetic table with its 16-bit range check
+    (evm/arithmetic.py, ArithmeticStark(range_check=True): 237 columns,
+    48 lookups) on evm/workload.py:arithmetic_ops() under
+    standard_fast_config: the trace made on the host (2^16 rows) and
+    each op's output held against its Python int, the quotient program
+    compiled (ops, slots, K6 form), proved cold and warm (every proof the
+    pinned ARITHMETIC_PROOF_SHA256, the port's CPU proof) and verified;
+    then two tampered traces: a mul row's product with its low limb
+    flipped, whose proof the verifier refuses, and an input written with
+    a limb of 2^16 or more (forged_limb_trace), which breaks only the
+    range check's constraints (stark/testing.py:
+    trace_constraint_violations)."""
+    import torch
+    from plonky2_tpu_torch.evm import arithmetic as ar
+    from plonky2_tpu_torch.evm.workload import arithmetic_ops
+    from plonky2_tpu_torch.plonk.constraint_program import linearize
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.prover import prove
+    from plonky2_tpu_torch.stark.quotient_program import stark_program
+    from plonky2_tpu_torch.stark.testing import trace_constraint_violations
+    from plonky2_tpu_torch.stark.verifier import (StarkVerificationError,
+                                                  verify_stark_proof)
+    config = StarkConfig.standard_fast_config()
+    stark = ar.ArithmeticStark(range_check=True)
+    ops = arithmetic_ops()
+    t = time.perf_counter()
+    trace = stark.generate_trace(ops)
+    gen_s = time.perf_counter() - t
+    used = sum(op.num_rows() for op in ops)
+    check(trace.shape == (ar.NUM_ARITH_RC_COLUMNS, ar.RC_MIN_ROWS)
+          and 60000 <= used < ar.RC_MIN_ROWS,
+          f"arithmetic trace {trace.shape}, {used} rows used")
+    check(arithmetic_outputs_ok(trace, ops), "an op's output in the trace "
+          "is not its Python-int result")
+    log(f"  {len(ops)} ops in {used} of {trace.shape[1]} rows: trace "
+        f"{trace.shape} made on the host in {gen_s:.3f} s; every output "
+        "is its Python-int result")
+    t = time.perf_counter()
+    prog = stark_program(stark, config)
+    linearize(prog)
+    prog_line = stark_programs_line([prog], ["ArithmeticStark"],
+                                    [time.perf_counter() - t])
+    note_program(prog, dev)
+    res, proof = prove_stark_path(
+        f"arithmetic table (2^{ar.LIMB_BITS} rows, range-checked)",
+        lambda timing: prove(stark, config, trace, [], timing=timing),
+        STARK_KEYS, ARITHMETIC_PROOF_SHA256, warm_runs=EARLIER_WARM_RUNS)
+    t = time.perf_counter()
+    verify_stark_proof(stark, proof, config)
+    verify_s = time.perf_counter() - t
+    log(f"  the port's verifier accepts the proof in {verify_s:.2f} s")
+    del proof
+    torch.cuda.empty_cache()
+
+    mul_row = next(j for j, op in zip(np.cumsum(
+        [0] + [o.num_rows() for o in ops]), ops) if op.op == "mul")
+    bad = trace.copy()
+    bad[ar.GENERAL_INPUT_2.start, mul_row] ^= np.uint64(1)
+    why = refused(lambda: verify_stark_proof(
+        stark, prove(stark, config, bad, []), config),
+        StarkVerificationError, "quotient mismatch")
+    check(why is not None, "a proof of a wrong product was accepted")
+    log(f"  a wrong product (row {mul_row}) is refused: {why[:160]}")
+
+    row, bad = forged_limb_trace(trace, ops)
+    t = time.perf_counter()
+    violations = trace_constraint_violations(stark, bad)
+    scan_s = time.perf_counter() - t
+    first_rc = constraint_count(ar.ArithmeticStark())
+    check(violations and min(violations) >= first_rc,
+          f"a limb of 2^16 gave the violations {violations} (the range "
+          f"check's constraints start at {first_rc})")
+    log(f"  input0 of the add on row {row} written with a limb of 2^16 or "
+        f"more (the same 256-bit value, its lookup columns recomputed) "
+        f"breaks the range check's constraints {violations} and no other "
+        f"({scan_s:.2f} s on the host)")
+    res.update(trace_gen_s=gen_s, programs=prog_line, verify_s=verify_s,
+               n_ops=len(ops), rows_used=used)
     return res
 
 
@@ -3713,6 +3993,14 @@ def main() -> int:
     with phase("9k the U32, comparison and permutation gate set at 2^14 "
                "rows, proved and verified"):
         paths["gate_set"] = phase_gate_set(dev)
+    torch.cuda.empty_cache()
+    with phase("9l secp256k1 ECDSA verification in a circuit (98,660 gates, "
+               "2^17 rows), proved and verified"):
+        paths["ecdsa"] = phase_ecdsa(dev)
+    torch.cuda.empty_cache()
+    with phase("9m the range-checked arithmetic table (41,692 ops, 2^16 "
+               "rows, 237 columns), proved and verified"):
+        paths["arithmetic"] = phase_arithmetic(dev)
     with phase("10 kernels line"):
         line = kernels_line(kern, paths, smi, waves)
         line["narrow_levels"] = narrow
@@ -3732,7 +4020,7 @@ def main() -> int:
                       "double_bytes", "double_compressed_bytes",
                       "compress_s", "decompress_s", "cyclic", "fib",
                       "tables", "replay_s", "aggregate_s", "wrap_all_s",
-                      "evm_setup_s",
+                      "evm_setup_s", "place_s", "n_ops", "rows_used",
                       "degree_bits"):
                 if f in p:
                     line["paths"][k][f] = p[f]

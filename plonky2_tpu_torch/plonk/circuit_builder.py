@@ -10,15 +10,15 @@ watch, and the circuit digest.  The commitment runs on the device through
 fri/oracle.py:PolynomialBatch.from_values (kernels K3, K5, K1 and K2 on a
 card).  It takes the JAX builder's gadget mixins for the extension field
 (gadgets/extension.py), bit splits, exponentiation and random access
-(gadgets/split.py), coset interpolation (gates/interpolation.py), Merkle
-proofs (gadgets/merkle.py), u32 arithmetic and comparison
-(gadgets/u32.py), insertion (gates/insertion.py), permutation networks and
-sorting (gadgets/permutation.py), the FRI and PLONK verifiers in the
-circuit (fri/recursive_verifier.py, plonk/recursive_verifier.py),
-conditional and cyclic recursion (plonk/recursion.py), with the
-cyclic-recursion goal, and tree recursion (plonk/tree_recursion.py), in
-the JAX builder's order; its big-integer, non-native and ECDSA mixins are
-ROADMAP 15c.1.
+(gadgets/split.py), u32 arithmetic and comparison (gadgets/u32.py), big
+integers (gadgets/biguint.py), foreign fields (gadgets/nonnative.py),
+secp256k1 points (ecdsa/gadgets.py), Merkle proofs (gadgets/merkle.py),
+coset interpolation (gates/interpolation.py), insertion
+(gates/insertion.py), permutation networks and sorting
+(gadgets/permutation.py), the FRI and PLONK verifiers in the circuit
+(fri/recursive_verifier.py, plonk/recursive_verifier.py), conditional and
+cyclic recursion (plonk/recursion.py), with the cyclic-recursion goal,
+and tree recursion (plonk/tree_recursion.py), in the JAX builder's order.
 """
 from __future__ import annotations
 
@@ -27,11 +27,14 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from .. import resolve_device
+from ..ecdsa.gadgets import CurveGadgets
 from ..field import goldilocks as gl
 from ..fri.oracle import PolynomialBatch
 from ..fri.recursive_verifier import FriRecursiveGadgets
+from ..gadgets.biguint import BigUintGadgets
 from ..gadgets.extension import ExtensionGadgets
 from ..gadgets.merkle import MerkleGadgets
+from ..gadgets.nonnative import NonNativeGadgets
 from ..gadgets.permutation import PermutationGadgets
 from ..gadgets.split import SplitGadgets
 from ..gadgets.u32 import U32Gadgets
@@ -66,6 +69,7 @@ class GateInstance:
 
 
 class CircuitBuilder(ExtensionGadgets, SplitGadgets, U32Gadgets,
+                     BigUintGadgets, NonNativeGadgets, CurveGadgets,
                      MerkleGadgets, InterpolationGadgets, InsertionGadgets,
                      PermutationGadgets, FriRecursiveGadgets,
                      RecursionGadgets, ConditionalRecursionGadgets,

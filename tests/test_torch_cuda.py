@@ -342,12 +342,33 @@ def gate_set_program():
     return build_quotient_program(common)
 
 
+def ecdsa_program():
+    """The ECDSA verification circuit's quotient program (models/
+    ecdsa_verify.py under standard_ecc_config; nothing committed)."""
+    from plonky2_tpu_torch.models.ecdsa_verify import ecdsa_builder
+    from plonky2_tpu_torch.plonk.quotient_program import \
+        build_quotient_program
+    return build_quotient_program(ecdsa_builder()[0].build_common())
+
+
+def arithmetic_program():
+    """The range-checked arithmetic table's quotient program (its eval
+    and the 96 permutation pairs of its lookups)."""
+    from plonky2_tpu_torch.evm.arithmetic import ArithmeticStark
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.quotient_program import build_stark_program
+    return build_stark_program(ArithmeticStark(range_check=True),
+                               StarkConfig.standard_fast_config())
+
+
 @pytest.mark.parametrize("make", [system_zero_program, recursion_program,
-                                  fib_wrapper_program, gate_set_program])
+                                  fib_wrapper_program, gate_set_program,
+                                  ecdsa_program, arithmetic_program])
 def test_constraint_program_kernel_system_zero_and_recursion(dev, make):
     """K6 on System Zero's quotient program (its eval and permutation
-    checks), on a recursion circuit's, on the Fibonacci wrapper's and on
-    the U32 and permutation gate set's, against the plain version."""
+    checks), on a recursion circuit's, on the Fibonacci wrapper's, on
+    the U32 and permutation gate set's, on the ECDSA circuit's and on the
+    range-checked arithmetic table's, against the plain version."""
     prog = make()
     rng = np.random.default_rng(12)
     inputs = _rand((prog.n_inputs, 4096 + 37), 12, dev)
