@@ -21,7 +21,7 @@ whole proof after the witness:
   the fused FRI (its transcript on the card: kernel K9, the grind K8 on
   its state), held equal to the layered FRI's proof;
 * the whole proof after the witness (plonk/prover.py:prove, phases 2-8),
-  from the same witness, and at 2^10 rows the card's proof against the one
+  from the same witness, and at 2^9 rows the card's proof against the one
   the same machine makes with device="cpu";
 * the port's entry points on the real flagship circuit (phase 9b):
   CircuitBuilder.build of the 2^17-leaf hash tree (models/hash_tree.py;
@@ -92,15 +92,24 @@ whole proof after the witness:
   9m, evm/arithmetic.py: 41,692 ops in 2^16 rows, 237 columns, 48
   lookups) under standard_fast_config, each output held against its
   Python int, proved, pinned to the port's CPU proof, a wrong product and
-  a limb of 2^16 refused.  Phases 9c-9m run EARLIER_WARM_RUNS warm
-  proofs.
+  a limb of 2^16 refused;
+* the zkEVM's block proof (phase 9n, evm/block.py): the block kernel
+  assembled (its code the JAX package's), tests/test_evm_transfer.py's
+  signed transfer executed on the host with the sender recovered in the
+  kernel (the CPU table 130 x 2^19, memory 21 x 2^21, the range-checked
+  arithmetic table 237 x 2^16; each of the six traces the JAX
+  package's, by sha256), the state root after the block the hand-built
+  trie's, proved through prove_block_traces (pinned to the card's proof),
+  verified, one opened value of the CPU table flipped and refused.
+  Phases 9c-9n run EARLIER_WARM_RUNS warm proofs.
 
 The script builds the kernels from csrc/ with nvcc (one process per
 source, in parallel), holds each kernel, in each of its forms (K3 and K5
 down the columns and along the rows; K6 on the flagship's program, the
 gate mix's, one of more slots than shared memory holds, the EVM keccak
 table's, System Zero's, the single-recursion circuit's, the wrappers',
-the gate set's, the ECDSA circuit's and the arithmetic table's), against
+the gate set's, the ECDSA circuit's, the arithmetic table's and the
+block's CPU table's), against
 its plain PyTorch version on the card (exact equality: integer
 arithmetic, tolerance 0), runs each path
 at full width with its launch counts set to 0 just before and read just
@@ -163,7 +172,7 @@ POW_BITS = 16
 ARITY_BITS = 4
 FINAL_POLY_BITS = 5
 PUBLIC_INPUT_WIRES = ((0, 0), (1, 0), (2, 0), (3, 0))
-REDUCED_LOG_N = 10              # the card-vs-CPU proof
+REDUCED_LOG_N = 9               # the card-vs-CPU proof
 # the flagship circuit built by the port (phase 9b): 2^17 leaves, 2^18 rows;
 # its proof from random.Random(0), as every build of the port since it
 # first proved the flagship has made it
@@ -292,7 +301,36 @@ ECDSA_PROOF_SHA256 = ("d7cb0b755eb6d52f4db6a15f705ca5161a193f0699f24260406c4"
 # arithmetic)
 ARITHMETIC_PROOF_SHA256 = ("a7ce359735ca320d316ad27c01409f62d19f7509e8480fd5"
                            "27372d157ece7986")
-# phases 9c-9m run fewer warm proofs than the others, which keeps the
+# Phase 9n: the block of tests/test_evm_transfer.py's signed transfer
+# (evm/workload.py:transfer_inputs, upstream transfer_to_new_addr.rs)
+# with the sender recovered in the kernel and the arithmetic table's
+# range check on, under standard_fast_config.  The block kernel's code
+# (sha256) and code hash, and each of the six traces' (rows, columns,
+# sha256 of its uint64 bytes), are the JAX package's
+# (scripts/jax_block_pins.py on the CPU); the proof is the card's (a CPU
+# proof at this size is impractical), which the warm run and a second
+# call repeat
+BLOCK_KERNEL_SHA256 = ("78fe242e5a6541334ebd52805f7154bfd43e122147f87bcb49"
+                       "1e622ff47b0146")
+BLOCK_CODE_HASH = ("1af22362e1870e400095c60617e4d7e16adbb23efd76b85ec81c2"
+                   "ba0ac226dc1")
+BLOCK_TRACES = (
+    (130, 524288,
+     "c97f4f7a3a9792fe52ce5701ccb5129d86ad92723a61fb32b6e0a027a1fddb5f"),
+    (2481, 4096,
+     "c3a9744e096cf224ed6ea0e35c2a50b754f340fb6e10981f0cba50143e8dc2bd"),
+    (414, 128,
+     "77fdfea1c255ace59f63cba953ae72b4cac1e1c6d4982001edce59d1117ab913"),
+    (523, 2048,
+     "1baa77d9f6a9656eb271e896d4382782c5aee18c602235745fe463e5bd0835ca"),
+    (21, 2097152,
+     "dbe09279378c7df71742093d67677b868cbe589e355a2914eb447946a4cf1f4f"),
+    (237, 65536,
+     "b111e27d1440d4ebed7539199ae80c570dcc892ea8532be69c27573263116038"),
+)
+BLOCK_PROOF_SHA256 = ("96082f90cf18f7e8c63c3350116e4ec945c0589ceb2e3e8a757"
+                      "9a9c6a099c3f8")
+# phases 9c-9n run fewer warm proofs than the others, which keeps the
 # whole script inside its time limit since 9g-9k came
 EARLIER_WARM_RUNS = 1
 # the TPU kernels each STARK path must launch (K4 and K7 where they do)
@@ -703,13 +741,17 @@ def phase_kernels(dev) -> dict:
             r.update(kernel_ms_at_plain_shape=k_ms, plain_ms=p_ms,
                      plain_shape=what)
 
-    # the commitments' widths, the FRI layers' 2 x 16, and boundary values
-    for L, make in ((234, rand_field), (135, rand_field), (2481, rand_field),
-                    (32, rand_field), (234, boundary_field),
-                    (135, boundary_field), (9, boundary_field)):
-        leaves = make(rng, (L, 1 << 14), dev)
+    # the commitments' widths, the FRI layers' 2 x 16, and boundary values;
+    # the keccak table's width at its LDE in the block proof (2^12 rows,
+    # rate 1)
+    for L, log_n, make in ((234, 14, rand_field), (135, 14, rand_field),
+                           (2481, 13, rand_field), (32, 14, rand_field),
+                           (234, 14, boundary_field),
+                           (135, 14, boundary_field),
+                           (9, 14, boundary_field)):
+        leaves = make(rng, (L, 1 << log_n), dev)
         kind = " boundary" if make is boundary_field else ""
-        compare("plk_hash_leaves", f"L={L} N=2^14{kind}",
+        compare("plk_hash_leaves", f"L={L} N=2^{log_n}{kind}",
                 lambda: pc.hash_leaves_cols_cuda(leaves),
                 lambda: pos.hash_leaves_cols(leaves),
                 timed=L == 234 and not kind)
@@ -1011,15 +1053,16 @@ def single_recursion_program():
 
 
 def k6_programs(dev, rng, compare) -> dict:
-    """K6 on eleven programs, each held against run_plain (exact) and
+    """K6 on twelve programs, each held against run_plain (exact) and
     timed at K6_TIMING_LANES lanes (CUDA events, the median of 3 launches
     after a warm-up): the flagship's, the gate mix's, a program of more
     slots than shared memory holds at 32 lanes a block
     (constraint_program.py:wide_program), the EVM keccak table's (about
     29,000 ops), System Zero's, the single-recursion circuit's, the
     Fibonacci and EVM wrappers' (phase 9i), the U32 and permutation gate
-    set's (9k), the ECDSA circuit's (9l) and the range-checked arithmetic
-    table's (9m).  Per
+    set's (9k), the ECDSA circuit's (9l), the range-checked arithmetic
+    table's (9m) and the block's CPU table's with its CTL checks (9n).
+    Per
     program its form (lanes a block, slots in shared memory and spilled),
     ms a launch and ns a lane."""
     from plonky2_tpu_torch.field.convert import from_u64
@@ -1035,7 +1078,8 @@ def k6_programs(dev, rng, compare) -> dict:
              **wrapper_programs(),
              "gate set": gate_set_program(),
              "ECDSA circuit": ecdsa_program(),
-             "arithmetic table": arithmetic_program()}
+             "arithmetic table": arithmetic_program(),
+             "CPU table": cpu_table_program()}
     out = {}
     for name, prog in progs.items():
         lin = cp.linearize(prog)
@@ -3723,6 +3767,123 @@ def phase_arithmetic(dev) -> dict:
     return res
 
 
+def cpu_table_program():
+    """Phase 9n's CPU table program (the block kernel's CpuStark): its
+    eval and the checks of its twelve CTL lookups (24 Z columns at two
+    challenges), for phase 3."""
+    from plonky2_tpu_torch.evm import all_stark
+    from plonky2_tpu_torch.evm.block import block_kernel
+    from plonky2_tpu_torch.evm.cpu import CpuStark
+    from plonky2_tpu_torch.evm.cross_table_lookup import ctl_zs_layout
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.quotient_program import build_stark_program
+    config = StarkConfig.standard_fast_config()
+    return build_stark_program(
+        CpuStark(block_kernel(in_kernel_ecrecover=True)), config,
+        ctl_zs_layout(all_stark.all_cross_table_lookups_with_cpu(),
+                      all_stark.CPU_TABLES["cpu"], config.num_challenges))
+
+
+def phase_block(dev) -> dict:
+    """The zkEVM's six-table block proof of one signed transfer
+    (evm/workload.py:transfer_inputs): the block kernel assembled (its
+    code and code hash the JAX package's), the kernel executed on the host
+    with the sender recovered in the kernel (evm/block.py:
+    generate_block_traces, range check on; each trace the JAX package's),
+    the state root after the block the hand-built trie's; the six quotient
+    programs compiled (ops, slots, K6 form); proved cold and warm through
+    prove_block_traces (every proof the pinned BLOCK_PROOF_SHA256); the
+    port's verifier accepts the proof and refuses it with one opened value
+    of the CPU table flipped."""
+    import copy
+    import dataclasses
+    import hashlib
+    import torch
+    from plonky2_tpu_torch.evm import all_stark
+    from plonky2_tpu_torch.evm.block import (block_kernel,
+                                             generate_block_traces,
+                                             prove_block_traces)
+    from plonky2_tpu_torch.evm.verifier import (EvmVerificationError,
+                                                 verify_all_proof)
+    from plonky2_tpu_torch.evm.workload import transfer_inputs
+    from plonky2_tpu_torch.plonk.constraint_program import linearize
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.verifier import StarkVerificationError
+    from plonky2_tpu_torch.fri.verifier import FriVerificationError
+    config = StarkConfig.standard_fast_config()
+    t = time.perf_counter()
+    kernel = block_kernel(in_kernel_ecrecover=True)
+    asm_s = time.perf_counter() - t
+    code_sha = hashlib.sha256(bytes(kernel.code)).hexdigest()
+    code_hash = b"".join(int(x).to_bytes(4, "little")
+                         for x in kernel.code_hash).hex()
+    check((code_sha, code_hash) == (BLOCK_KERNEL_SHA256, BLOCK_CODE_HASH),
+          f"the block kernel ({code_sha}, code hash {code_hash}) is not the "
+          "JAX package's")
+    log(f"  block kernel: {len(kernel.code)} code bytes assembled in "
+        f"{asm_s:.3f} s, sha256 {code_sha} and code hash {code_hash}, the "
+        "JAX package's")
+    inputs, after = transfer_inputs()
+    t = time.perf_counter()
+    traces, public_values, kernel = generate_block_traces(
+        inputs, range_check=True, in_kernel_ecrecover=True)
+    gen_s = time.perf_counter() - t
+    got = tuple((tr.shape[0], tr.shape[1], hashlib.sha256(
+        np.ascontiguousarray(tr, dtype=np.uint64).tobytes()).hexdigest())
+        for tr in traces)
+    shapes = [tuple(tr.shape) for tr in traces]
+    log(f"  six traces generated on the host in {gen_s:.3f} s: {shapes} "
+        "(cpu, keccak, sponge, logic, memory, arithmetic)")
+    check(got == BLOCK_TRACES, f"the block's traces {got} are not the "
+          "JAX package's")
+    log("  every trace's sha256 is the JAX package's")
+    check(public_values.trie_roots_after.state_root == after.calc_hash(),
+          "the state root after the block is not the hand-built trie's")
+    root = public_values.trie_roots_after.state_root
+    log(f"  the state root after the block {root:#x} is the hand-built "
+        "trie's")
+    stark = all_stark.make_all_stark_with_cpu(kernel, range_check=True)
+    names = [type(x).__name__ for x in stark.starks]
+    compile_s = []
+    for i in range(len(stark.starks)):
+        t = time.perf_counter()
+        prog = stark.programs(config)[i]
+        linearize(prog)
+        compile_s.append(time.perf_counter() - t)
+    programs = stark.programs(config)
+    prog_line = stark_programs_line(programs, names, compile_s)
+    for prog in programs:
+        note_program(prog, dev)
+
+    def prove(timing):
+        proof, _ = prove_block_traces(traces, public_values, kernel, config,
+                                      timing=timing, all_stark=stark)
+        return dataclasses.replace(proof, public_values=None)
+
+    res, proof = prove_stark_path(
+        "block proof (one signed transfer, six tables)", prove, STARK_KEYS,
+        BLOCK_PROOF_SHA256, warm_runs=EARLIER_WARM_RUNS)
+    t = time.perf_counter()
+    verify_all_proof(stark, proof, config)
+    verify_s = time.perf_counter() - t
+    log(f"  the port's verifier accepts the proof in {verify_s:.2f} s")
+    bad = copy.deepcopy(proof)
+    bad.stark_proofs[0].openings.local_values[0][0] ^= np.uint64(1)
+    t = time.perf_counter()
+    why = refused(lambda: verify_all_proof(stark, bad, config),
+                  (EvmVerificationError, StarkVerificationError,
+                   FriVerificationError), "")
+    check(why is not None, "the port's verifier accepted a block proof "
+          "with an opened value of the CPU table flipped")
+    log(f"  ... and refuses it with one opened value of the CPU table "
+        f"flipped in {time.perf_counter() - t:.2f} s ({why[:160]})")
+    del bad, proof, traces
+    torch.cuda.empty_cache()
+    res.update(trace_gen_s=gen_s, shapes=shapes, programs=prog_line,
+               verify_s=verify_s, asm_s=asm_s)
+    return res
+
+
 def check_plan_witness(sess, pw, dev) -> dict:
     """The session's kept witness plan against the host engine
     (iop/generator.py) on one random.Random(0) stream: the same
@@ -4001,6 +4162,11 @@ def main() -> int:
     with phase("9m the range-checked arithmetic table (41,692 ops, 2^16 "
                "rows, 237 columns), proved and verified"):
         paths["arithmetic"] = phase_arithmetic(dev)
+    torch.cuda.empty_cache()
+    with phase("9n the zkEVM block proof of one signed transfer (CPU, "
+               "keccak, sponge, logic, memory and arithmetic tables; the "
+               "sender recovered in the kernel), proved and verified"):
+        paths["block"] = phase_block(dev)
     with phase("10 kernels line"):
         line = kernels_line(kern, paths, smi, waves)
         line["narrow_levels"] = narrow
@@ -4021,7 +4187,7 @@ def main() -> int:
                       "compress_s", "decompress_s", "cyclic", "fib",
                       "tables", "replay_s", "aggregate_s", "wrap_all_s",
                       "evm_setup_s", "place_s", "n_ops", "rows_used",
-                      "degree_bits"):
+                      "degree_bits", "asm_s"):
                 if f in p:
                     line["paths"][k][f] = p[f]
     with phase("11 int32 multiply rate and field-product SASS"):

@@ -9,6 +9,12 @@ whose CTLs ship disabled; here they are live and verified):
   table (with the op-row filter, so all five chunks are looked up on
   every absorb row);
 - ctl_memory: one lookup per input byte read from memory.
+
+With the CPU (the six tables of a block proof, table indices in
+``CPU_TABLES``) the CPU also looks up its opcode fetches and its five
+general channels in the memory table, its AND/OR/XOR rows in the logic
+table, its KECCAK_GENERAL digests in the sponge table and its ADD/MUL/SUB/
+LT/GT, ADDMOD/MULMOD, DIV and MOD results in the arithmetic table.
 """
 from __future__ import annotations
 
@@ -16,11 +22,16 @@ from typing import List
 
 import numpy as np
 
+from . import arithmetic as arith_mod
+from . import cpu as cpu_mod
 from . import keccak_sponge as sponge_mod
 from . import keccak_stark as keccak_mod
 from . import logic as logic_mod
 from . import memory as memory_mod
+from .arithmetic import RC_MIN_ROWS, ArithmeticStark
+from .cpu import CpuStark, generate_bootstrap_kernel
 from .cross_table_lookup import CrossTableLookup, TableWithColumns
+from .generation import generate_kernel_execution
 from .keccak_sponge import KECCAK_RATE_BYTES, KeccakSpongeOp, KeccakSpongeStark
 from .keccak_stark import KeccakStark
 from .logic import LogicStark, Operation as LogicOp
@@ -32,41 +43,128 @@ KECCAK_SPONGE = 1
 LOGIC = 2
 MEMORY = 3
 
+# the six tables of a block proof: the first five in the reference's Table
+# order (all_stark.rs:33-47), then the arithmetic table, which the CPU's
+# lookups bind
+CPU_TABLES = {"cpu": 0, "keccak": 1, "keccak_sponge": 2, "logic": 3,
+              "memory": 4, "arithmetic": 5}
+_DEFAULT_TABLES = {"keccak": KECCAK, "keccak_sponge": KECCAK_SPONGE,
+                   "logic": LOGIC, "memory": MEMORY}
 
-def ctl_keccak() -> CrossTableLookup:
-    """(reference all_stark.rs:108-120)."""
+
+def ctl_keccak(t=_DEFAULT_TABLES) -> CrossTableLookup:
+    """(reference all_stark.rs:108-120); ``t`` maps table names to their
+    indices."""
     looking = TableWithColumns(
-        table=KECCAK_SPONGE, columns=sponge_mod.ctl_looking_keccak(),
+        table=t["keccak_sponge"], columns=sponge_mod.ctl_looking_keccak(),
         filter_column=sponge_mod.ctl_looking_keccak_filter())
-    looked = TableWithColumns(table=KECCAK, columns=keccak_mod.ctl_data(),
+    looked = TableWithColumns(table=t["keccak"],
+                              columns=keccak_mod.ctl_data(),
                               filter_column=keccak_mod.ctl_filter())
     return CrossTableLookup(looking_tables=[looking], looked_table=looked)
 
 
-def ctl_logic() -> CrossTableLookup:
+def ctl_logic(t=_DEFAULT_TABLES) -> CrossTableLookup:
     """(reference all_stark.rs:136-154)."""
-    lookers = [TableWithColumns(
-        table=KECCAK_SPONGE, columns=sponge_mod.ctl_looking_logic(i),
+    lookers = []
+    if "cpu" in t:
+        lookers.append(TableWithColumns(
+            table=t["cpu"], columns=cpu_mod.ctl_data_logic(),
+            filter_column=cpu_mod.ctl_filter_logic()))
+    lookers += [TableWithColumns(
+        table=t["keccak_sponge"], columns=sponge_mod.ctl_looking_logic(i),
         filter_column=sponge_mod.ctl_looking_logic_filter())
         for i in range(sponge_mod.num_logic_ctls())]
-    looked = TableWithColumns(table=LOGIC, columns=logic_mod.ctl_data(),
+    looked = TableWithColumns(table=t["logic"], columns=logic_mod.ctl_data(),
                               filter_column=logic_mod.ctl_filter())
     return CrossTableLookup(looking_tables=lookers, looked_table=looked)
 
 
-def ctl_memory() -> CrossTableLookup:
+def ctl_memory(t=_DEFAULT_TABLES) -> CrossTableLookup:
     """(reference all_stark.rs:156-177)."""
-    lookers = [TableWithColumns(
-        table=KECCAK_SPONGE, columns=sponge_mod.ctl_looking_memory(i),
+    lookers = []
+    if "cpu" in t:
+        lookers.append(TableWithColumns(
+            table=t["cpu"], columns=cpu_mod.ctl_data_code_memory(),
+            filter_column=cpu_mod.ctl_filter_code_memory()))
+        lookers += [TableWithColumns(
+            table=t["cpu"], columns=cpu_mod.ctl_data_gp_memory(ch),
+            filter_column=cpu_mod.ctl_filter_gp_memory(ch))
+            for ch in range(cpu_mod.NUM_GP_CHANNELS)]
+    lookers += [TableWithColumns(
+        table=t["keccak_sponge"], columns=sponge_mod.ctl_looking_memory(i),
         filter_column=sponge_mod.ctl_looking_memory_filter(i))
         for i in range(KECCAK_RATE_BYTES)]
-    looked = TableWithColumns(table=MEMORY, columns=memory_mod.ctl_data(),
+    looked = TableWithColumns(table=t["memory"],
+                              columns=memory_mod.ctl_data(),
                               filter_column=memory_mod.ctl_filter())
     return CrossTableLookup(looking_tables=lookers, looked_table=looked)
 
 
+def _cpu_lookup(t, table: str, looking, looked) -> CrossTableLookup:
+    """One lookup from the CPU into `table`: ``looking`` and ``looked``
+    are (columns, filter) pairs of the two tables."""
+    return CrossTableLookup(
+        looking_tables=[TableWithColumns(table=t["cpu"], columns=looking[0],
+                                         filter_column=looking[1])],
+        looked_table=TableWithColumns(table=t[table], columns=looked[0],
+                                      filter_column=looked[1]))
+
+
+def ctl_keccak_sponge(t) -> CrossTableLookup:
+    """The CPU looks up its sponge results (reference
+    all_stark.rs:122-134)."""
+    return _cpu_lookup(
+        t, "keccak_sponge",
+        (cpu_mod.ctl_data_keccak_sponge(), cpu_mod.ctl_filter_keccak_sponge()),
+        (sponge_mod.ctl_looked_data(), sponge_mod.ctl_looked_filter()))
+
+
+def ctl_arithmetic(t) -> CrossTableLookup:
+    """The CPU's ADD/MUL/SUB/LT/GT (input0, input1, result) triples are
+    looked up in the arithmetic table (no upstream analogue: the
+    reference never connects this table)."""
+    return _cpu_lookup(
+        t, "arithmetic",
+        (cpu_mod.ctl_data_arithmetic(), cpu_mod.ctl_filter_arithmetic()),
+        (arith_mod.ctl_data(), arith_mod.ctl_filter()))
+
+
+def ctl_arithmetic_ternary(t) -> CrossTableLookup:
+    """The CPU's ADDMOD/MULMOD (a, b, m, out) quadruples, looked up in the
+    arithmetic table's modular rows."""
+    return _cpu_lookup(
+        t, "arithmetic",
+        (cpu_mod.ctl_data_arithmetic_ternary(),
+         cpu_mod.ctl_filter_arithmetic_ternary()),
+        (arith_mod.ctl_data_ternary(), arith_mod.ctl_filter_ternary()))
+
+
+def ctl_arithmetic_div(t) -> CrossTableLookup:
+    return _cpu_lookup(
+        t, "arithmetic",
+        (cpu_mod.ctl_data_arithmetic_div(),
+         cpu_mod.ctl_filter_arithmetic_div()),
+        (arith_mod.ctl_data_div(), arith_mod.ctl_filter_div()))
+
+
+def ctl_arithmetic_mod(t) -> CrossTableLookup:
+    return _cpu_lookup(
+        t, "arithmetic",
+        (cpu_mod.ctl_data_arithmetic_mod(),
+         cpu_mod.ctl_filter_arithmetic_mod()),
+        (arith_mod.ctl_data_mod(), arith_mod.ctl_filter_mod()))
+
+
 def all_cross_table_lookups() -> List[CrossTableLookup]:
     return [ctl_keccak(), ctl_logic(), ctl_memory()]
+
+
+def all_cross_table_lookups_with_cpu() -> List[CrossTableLookup]:
+    t = CPU_TABLES
+    return [ctl_keccak(t), ctl_keccak_sponge(t), ctl_logic(t),
+            ctl_memory(t), ctl_arithmetic(t), ctl_arithmetic_ternary(t),
+            ctl_arithmetic_div(t), ctl_arithmetic_mod(t)]
 
 
 def make_all_stark() -> AllStark:
@@ -122,3 +220,64 @@ def generate_all_traces(ops: List[KeccakSpongeOp],
     logic_trace = LogicStark().generate_trace(logic_ops, min_rows=min_rows)
     memory_trace = MemoryStark().generate_trace(memory_ops)
     return [keccak_trace, sponge_trace, logic_trace, memory_trace]
+
+
+def arithmetic_range_check_policy(range_check, arith_ops) -> bool:
+    """The arithmetic table's 16-bit limb range check: ``range_check``
+    where it is given, else on exactly when the table reaches 2^16 rows
+    (RC_MIN_ROWS), the height at which its counter column fits without
+    padding.  Below that the CTL-bound limb columns are not range-checked
+    (as in the reference, whose range_check_error! is a no-op,
+    utils.rs:10-31)."""
+    if range_check is not None:
+        return bool(range_check)
+    return sum(op.num_rows() for op in arith_ops) >= RC_MIN_ROWS
+
+
+def make_all_stark_with_cpu(kernel, range_check: bool = False) -> AllStark:
+    """The six tables of a block proof; ``range_check`` must be the flag
+    the traces were made with (it changes the arithmetic table's width)."""
+    return AllStark(
+        starks=[CpuStark(kernel), KeccakStark(), KeccakSpongeStark(),
+                LogicStark(), MemoryStark(),
+                ArithmeticStark(range_check=range_check)],
+        cross_table_lookups=all_cross_table_lookups_with_cpu())
+
+
+def generate_all_traces_with_cpu(kernel, min_rows: int = 8,
+                                 execution=None,
+                                 range_check=None) -> List[np.ndarray]:
+    """The six tables' traces: the CPU bootstraps the kernel into memory,
+    the sponge hashes it and the CPU looks the digest up (reference
+    generation/ + bootstrap_kernel.rs).  A kernel with main/halt_pc0/
+    halt_pc1 labels is also executed (``execution``, else
+    generation.generate_kernel_execution): its cycle rows, their memory
+    ops, and their logic, arithmetic and sponge lookups enter the
+    witness."""
+    labels = kernel.global_labels
+    if execution is not None or all(
+            k in labels for k in ("main", "halt_pc0", "halt_pc1")):
+        ex = execution if execution is not None else \
+            generate_kernel_execution(kernel, min_rows=min_rows)
+        cpu_trace, cpu_memory_ops = ex.cpu_trace, ex.memory_ops
+        sponge_ops, cpu_logic_ops = ex.sponge_ops, ex.logic_ops
+        cpu_arith_ops = ex.arith_ops
+    else:
+        cpu_trace, cpu_memory_ops, sponge_ops = \
+            generate_bootstrap_kernel(kernel, min_rows=min_rows)
+        cpu_logic_ops, cpu_arith_ops = [], []
+    sponge_trace = KeccakSpongeStark().generate_trace(sponge_ops,
+                                                      min_rows=min_rows)
+    keccak_inputs, logic_ops, sponge_memory_ops = \
+        _sponge_derived_witness(sponge_trace)
+    keccak_trace = KeccakStark().generate_trace(keccak_inputs,
+                                                min_rows=min_rows)
+    logic_trace = LogicStark().generate_trace(cpu_logic_ops + logic_ops,
+                                              min_rows=min_rows)
+    memory_trace = MemoryStark().generate_trace(cpu_memory_ops
+                                                + sponge_memory_ops)
+    rc = arithmetic_range_check_policy(range_check, cpu_arith_ops)
+    arith_trace = ArithmeticStark(range_check=rc).generate_trace(
+        cpu_arith_ops, min_rows=min_rows)
+    return [cpu_trace, keccak_trace, sponge_trace, logic_trace, memory_trace,
+            arith_trace]

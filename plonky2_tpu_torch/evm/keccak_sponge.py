@@ -48,6 +48,16 @@ NUM_KECCAK_SPONGE_COLUMNS = UPDATED_STATE_U32S.stop
 
 # --- CTL columns (reference keccak_sponge_stark.rs:26-147) ----------------
 
+def ctl_looked_data() -> List[Column]:
+    """What the CPU looks up: address, length, timestamp, 256-bit digest."""
+    return (Column.singles([CONTEXT, SEGMENT, VIRT, LEN, TIMESTAMP])
+            + Column.singles(list(UPDATED_STATE_U32S)[:8]))
+
+
+def ctl_looked_filter() -> Column:
+    return Column.single(IS_FINAL_BLOCK)
+
+
 def ctl_looking_keccak() -> List[Column]:
     """Row sent to the keccak-f table: permutation input and output.  The
     permutation's input rate is the POST-xor rate; the reference sends

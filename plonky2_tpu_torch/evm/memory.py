@@ -7,6 +7,7 @@ its trace generator written with numpy array ops."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+from enum import IntEnum
 from typing import List
 
 import numpy as np
@@ -38,6 +39,28 @@ COUNTER = RANGE_CHECK + 1
 RANGE_CHECK_PERMUTED = COUNTER + 1
 COUNTER_PERMUTED = RANGE_CHECK_PERMUTED + 1
 NUM_COLUMNS = COUNTER_PERMUTED + 1
+
+
+class Segment(IntEnum):
+    """(reference memory/segments.rs:3-42)."""
+    Code = 0
+    Stack = 1
+    MainMemory = 2
+    Calldata = 3
+    Returndata = 4
+    GlobalMetadata = 5
+    ContextMetadata = 6
+    KernelGeneral = 7
+    KernelGeneral2 = 8
+    KernelAccountCode = 9
+    TxnFields = 10
+    TxnData = 11
+    RlpRaw = 12
+    TrieData = 13
+    TrieEncodedChild = 14
+    TrieEncodedChildLen = 15
+    ShiftTable = 16
+    JumpdestBits = 17
 
 
 def ctl_data() -> List[Column]:

@@ -18,7 +18,14 @@ mul, lt, gt, addmod, submod, mulmod, mod and div, then mod, div and
 mulmod by a zero modulus and lt of equal inputs: 14 ops in 22 rows), its
 256-bit values drawn from numpy's ``default_rng(seed)``.  At the default
 2,978 groups (41,692 ops) it fills 65,516 of the 2^16 rows of the
-range-checked table."""
+range-checked table.
+
+``transfer_inputs()``: the block of one signed transfer that
+tests/test_evm_transfer.py proves (upstream transfer_to_new_addr.rs):
+the type-0 transaction TRANSFER_TXN (nonce 5, gas price 10, gas 22,000,
+to a0..a0, value 100, data 0x4242) against a state trie holding only its
+sender's account (nonce 5, 10^23 wei); with the state trie that the
+upstream test builds by hand for after the block."""
 from __future__ import annotations
 
 from typing import List
@@ -70,3 +77,38 @@ def arithmetic_ops(groups: int = ARITHMETIC_GROUPS, seed: int = 0,
                 operation("mulmod", v[2], v[3], 0),
                 operation("lt", v[4], v[4])]
     return ops
+
+
+# upstream transfer_to_new_addr.rs:60, signed by TRANSFER_SENDER
+TRANSFER_TXN = bytes.fromhex(
+    "f861050a8255f094a0a0a0a0a0a0a0a0a0a0a0a0a0a0a0a0a0a0a0a06482424"
+    "21ba02c89eb757d9deeb1f5b3859a9d4d679951ef610ac47ad4608dc142beb1"
+    "b7e313a05af7e9fbab825455d36c36c7f4cfcafbeafa9a77bdff936b52afb36"
+    "d4fe4bcdd")
+TRANSFER_SENDER = 0x2c7536e3605d9c16a7a3d7b1898e529396a65c23
+TRANSFER_TO = 0xA0A0A0A0A0A0A0A0A0A0A0A0A0A0A0A0A0A0A0A0
+TRANSFER_VALUE = 100
+
+
+def transfer_inputs():
+    """(GenerationInputs of the transfer's block, the state trie expected
+    after it, built by hand as transfer_to_new_addr.rs:76-103 builds
+    it)."""
+    from ..hash.keccak import keccak256
+    from .block import BlockMetadata, GenerationInputs, TrieInputs
+    from .mpt import AccountRlp, Nibbles, PartialTrie, trie_insert
+
+    def key(addr):
+        return Nibbles.from_bytes(keccak256(addr.to_bytes(20, "big")))
+
+    sender = AccountRlp(nonce=5, balance=100_000 * 10 ** 18)
+    inputs = GenerationInputs(
+        signed_txns=[TRANSFER_TXN],
+        tries=TrieInputs(state_trie=PartialTrie.leaf(
+            key(TRANSFER_SENDER), sender.encode())),
+        block_metadata=BlockMetadata())
+    after = PartialTrie.leaf(key(TRANSFER_SENDER), AccountRlp(
+        nonce=sender.nonce, balance=sender.balance - TRANSFER_VALUE).encode())
+    after = trie_insert(after, key(TRANSFER_TO),
+                        AccountRlp(balance=TRANSFER_VALUE).encode())
+    return inputs, after
