@@ -330,6 +330,46 @@ BLOCK_TRACES = (
 )
 BLOCK_PROOF_SHA256 = ("96082f90cf18f7e8c63c3350116e4ec945c0589ceb2e3e8a757"
                       "9a9c6a099c3f8")
+# Phase 9o: tests/test_storage_ops.py's kernel (evm/workload.py:
+# storage_ops_kernel; user SLOAD and SSTORE trap to evm/storage_asm.py's
+# handlers, the state trie hashed at the end) executed with that test's
+# tries, its six traces proved under standard_fast_config.  The kernel's
+# code and each trace's (rows, columns, sha256 of its uint64 bytes) are
+# the JAX package's (scripts/jax_storage_keccak_pins.py on the CPU); the
+# proof is the card's, which the warm run and a second call repeat
+STORAGE_KERNEL_SHA256 = ("2dcfc4758b476c30328d4e1cd8e52951abc430059627c82e6"
+                         "164d0c62c04cfbe")
+STORAGE_TRACES = (
+    (130, 131072,
+     "2eb969c68dad085814e4ad48afdbd478ec3a53475c0f61c426971bbf48501d04"),
+    (2481, 2048,
+     "ad61cb1fd59ca192c7a5daa4aa25ecf387042f3cae75c1b12fb913461018721e"),
+    (414, 128,
+     "db895a7c9d2bff33dc6777531d20246f387bd9b3f5f96baa93d192e0479c0422"),
+    (523, 512,
+     "d32e05959f7315956817695d7a95b315277a70ed4615885018e2745646befbf4"),
+    (21, 524288,
+     "e7541e7c0640efd6d4c421a084486304cdcf7036eb7704974c1965bd5e6de349"),
+    (92, 8192,
+     "953cdcad2afc78125bc1e3c56ad3892a7fd795e750588e9edaf387dbc9b08679"),
+)
+STORAGE_PROOF_SHA256 = ("69f90cd468c622cdfd8cbdace2591058db6acc5a6f747a8ca8"
+                        "fb7030d5681eea")
+# Phase 9p: tests/test_keccak_config.py's Fibonacci circuit (2^3 rows)
+# under its config (rate 3, cap 4, 28 queries, 8 bits of proof of work,
+# arities (4, 5)) and KECCAK_CONFIG; the digest and the proof from
+# random.Random(0) are the JAX package's
+# (scripts/jax_storage_keccak_pins.py)
+KECCAK_FIB_DIGEST = [28822982527739631, 40286453817766161,
+                     32392657613023589, 727814586]
+KECCAK_FIB_PROOF_SHA256 = ("fa379e36be845110550e7698a40ce42f88586781e11c7455"
+                           "25b33fbee47293a1")
+# the kernels the Keccak configuration's proof runs (its trees, transcript
+# and grind are the host's; K7 runs the witness plan's wave of the
+# PoseidonGate that hashes the public inputs in the circuit, Poseidon
+# under either configuration) and those it must not
+KECCAK_KEYS = ("K3", "K5", "K6", "K7")
+KECCAK_UNUSED = ("K1", "K2", "K8", "K9")
 # phases 9c-9n run fewer warm proofs than the others, which keeps the
 # whole script inside its time limit since 9g-9k came
 EARLIER_WARM_RUNS = 1
@@ -1941,11 +1981,11 @@ class FriSpy:
             self.folds.append((coeffs, beta, arity, out))
             return out
 
-        def grind(challenger, config, device):
+        def grind(challenger, config, device, *hasher):
             state = (challenger.duplex_input_state(),
                      len(challenger.input_buffer), config.proof_of_work_bits)
             witness = self.orig["fri_proof_of_work"](challenger, config,
-                                                     device)
+                                                     device, *hasher)
             self.grind = state + (witness,)
             return witness
 
@@ -3884,6 +3924,234 @@ def phase_block(dev) -> dict:
     return res
 
 
+def phase_storage(dev) -> dict:
+    """tests/test_storage_ops.py's storage-op execution and its six-table
+    proof: the kernel (evm/workload.py:storage_ops_kernel) assembled, its
+    code the JAX package's; executed on the host with that test's tries
+    (its SLOAD and SSTORE trapping through the syscall jumptable to
+    evm/storage_asm.py's handlers); the three read-back slots and the state
+    root held against the trie built by hand; the six traces
+    (evm/all_stark.py:generate_all_traces_with_cpu), each the JAX
+    package's; the six quotient programs compiled (ops, slots, K6 form);
+    proved cold and warm through prove_block_traces (every proof the
+    pinned STORAGE_PROOF_SHA256); the port's verifier accepts the proof
+    and refuses it with one opened value of the CPU table flipped."""
+    import copy
+    import hashlib
+    import torch
+    from plonky2_tpu_torch.evm import all_stark, workload
+    from plonky2_tpu_torch.evm.block import prove_block_traces
+    from plonky2_tpu_torch.evm.verifier import (EvmVerificationError,
+                                                 verify_all_proof)
+    from plonky2_tpu_torch.fri.verifier import FriVerificationError
+    from plonky2_tpu_torch.plonk.constraint_program import linearize
+    from plonky2_tpu_torch.stark.config import StarkConfig
+    from plonky2_tpu_torch.stark.verifier import StarkVerificationError
+    config = StarkConfig.standard_fast_config()
+    t = time.perf_counter()
+    kernel = workload.storage_ops_kernel()
+    asm_s = time.perf_counter() - t
+    code_sha = hashlib.sha256(bytes(kernel.code)).hexdigest()
+    check(code_sha == STORAGE_KERNEL_SHA256, f"the storage-op kernel "
+          f"({code_sha}) is not the JAX package's")
+    log(f"  storage-op kernel: {len(kernel.code)} code bytes assembled in "
+        f"{asm_s:.3f} s, sha256 {code_sha}, the JAX package's")
+    t = time.perf_counter()
+    ex = workload.storage_ops_execution(kernel)
+    exec_s = time.perf_counter() - t
+    readback = workload.storage_ops_readback(ex)
+    check(readback == workload.storage_ops_inputs()[1],
+          f"the read-backs and root {readback} are not the hand-built "
+          "trie's")
+    log(f"  executed on the host in {exec_s:.3f} s: SLOAD of slot "
+        f"{workload.STORAGE_SLOT_A} {readback[20]:#x}, of the absent slot "
+        f"{workload.STORAGE_SLOT_B} {readback[21]:#x}, of slot "
+        f"{workload.STORAGE_SLOT_A} after SSTORE {readback[22]:#x}; the "
+        f"state root after both writes {readback[11]:#x}, the hand-built "
+        "trie's")
+    t = time.perf_counter()
+    traces = all_stark.generate_all_traces_with_cpu(kernel, execution=ex)
+    gen_s = time.perf_counter() - t
+    got = tuple((tr.shape[0], tr.shape[1], hashlib.sha256(
+        np.ascontiguousarray(tr, dtype=np.uint64).tobytes()).hexdigest())
+        for tr in traces)
+    shapes = [tuple(tr.shape) for tr in traces]
+    log(f"  six traces generated on the host in {gen_s:.3f} s: {shapes} "
+        "(cpu, keccak, sponge, logic, memory, arithmetic)")
+    check(got == STORAGE_TRACES, f"the storage-op traces {got} are not the "
+          "JAX package's")
+    log("  every trace's sha256 is the JAX package's")
+    stark = all_stark.make_all_stark_with_cpu(kernel)
+    names = [type(x).__name__ for x in stark.starks]
+    compile_s = []
+    for i in range(len(stark.starks)):
+        t = time.perf_counter()
+        linearize(stark.programs(config)[i])
+        compile_s.append(time.perf_counter() - t)
+    programs = stark.programs(config)
+    prog_line = stark_programs_line(programs, names, compile_s)
+    for prog in programs:
+        note_program(prog, dev)
+
+    def prove(timing):
+        return prove_block_traces(traces, None, kernel, config,
+                                  timing=timing, all_stark=stark)[0]
+
+    res, proof = prove_stark_path(
+        "storage-op proof (SLOAD/SSTORE, six tables)", prove, STARK_KEYS,
+        STORAGE_PROOF_SHA256, warm_runs=EARLIER_WARM_RUNS)
+    t = time.perf_counter()
+    verify_all_proof(stark, proof, config)
+    verify_s = time.perf_counter() - t
+    log(f"  the port's verifier accepts the proof in {verify_s:.2f} s")
+    bad = copy.deepcopy(proof)
+    bad.stark_proofs[0].openings.local_values[0][0] ^= np.uint64(1)
+    why = refused(lambda: verify_all_proof(stark, bad, config),
+                  (EvmVerificationError, StarkVerificationError,
+                   FriVerificationError), "")
+    check(why is not None, "the port's verifier accepted a storage-op "
+          "proof with an opened value of the CPU table flipped")
+    log(f"  ... and refuses it with one opened value of the CPU table "
+        f"flipped ({why[:160]})")
+    del bad, proof, traces
+    torch.cuda.empty_cache()
+    res.update(trace_gen_s=gen_s, exec_s=exec_s, shapes=shapes,
+               programs=prog_line, verify_s=verify_s, asm_s=asm_s,
+               readback={k: hex(v) for k, v in readback.items()})
+    return res
+
+
+@contextlib.contextmanager
+def host_keccak_clock(out: dict):
+    """Seconds and calls of the host Keccak work while inside, into `out`:
+    the trees' digests (KeccakConfig.hash_leaves, compress_batch) and the
+    hash-onion permutations of the transcript and the grind
+    (KeccakConfig.permute); with the bytes of the numpy arrays each takes
+    and gives (hash_leaves takes the leaves copied down from the card,
+    and the digest levels go back up).  The wrappers time and pass
+    through."""
+    from plonky2_tpu_torch.hash.hashers import KeccakConfig
+    names = ("hash_leaves", "compress_batch", "permute")
+    orig = {n: KeccakConfig.__dict__[n] for n in names}
+    for n in names:
+        out.setdefault(n, {"s": 0.0, "calls": 0, "bytes_in": 0,
+                           "bytes_out": 0})
+
+        def timed(*args, _n=n, _f=orig[n].__func__):
+            t = time.perf_counter()
+            res = None
+            try:
+                res = _f(*args)
+                return res
+            finally:
+                out[_n]["s"] += time.perf_counter() - t
+                out[_n]["calls"] += 1
+                out[_n]["bytes_in"] += sum(a.nbytes for a in args
+                                           if isinstance(a, np.ndarray))
+                if isinstance(res, np.ndarray):
+                    out[_n]["bytes_out"] += res.nbytes
+        setattr(KeccakConfig, n, staticmethod(timed))
+    try:
+        yield out
+    finally:
+        for n, f in orig.items():
+            setattr(KeccakConfig, n, f)
+
+
+def phase_keccak(dev) -> dict:
+    """tests/test_keccak_config.py's Fibonacci circuit under its config and
+    the non-algebraic KECCAK_CONFIG: built on the card (the
+    constants-sigmas LDE there, its tree hashed on the host; the digest
+    the JAX package's), proved cold and warm through ProverSession (the
+    witness plan on the card, K7 for the public inputs' PoseidonGate,
+    the LDEs (K3, K5) and the quotient (K6) there too; the trees' Keccak
+    digests, the transcript and the grind on the host; K1, K2, K8 and K9
+    not launched), every proof the pinned
+    KECCAK_FIB_PROOF_SHA256 of the JAX package; the port's verifier
+    accepts it and refuses it under Poseidon's hasher name and with one
+    opened wire flipped.  Each proof's host Keccak seconds are printed
+    beside its wall."""
+    import copy
+    import torch
+    from plonky2_tpu_torch.fri.verifier import FriVerificationError
+    from plonky2_tpu_torch.hash.hashers import KECCAK_CONFIG, POSEIDON_CONFIG
+    from plonky2_tpu_torch.models.fibonacci import (build_fibonacci_circuit,
+                                                    keccak_fibonacci_config)
+    from plonky2_tpu_torch.plonk.verifier import ProofVerificationError
+    reset_launch_counts()
+    build_clock = {}
+    with host_keccak_clock(build_clock):
+        t = time.perf_counter()
+        data, pw, want_pis = build_fibonacci_circuit(
+            keccak_fibonacci_config(), gc=KECCAK_CONFIG)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+    build_launches = read_launch_counts()
+    digest = [int(x) for x in data.verifier_only.circuit_digest]
+    check(data.common.hasher_name == KECCAK_CONFIG.name
+          and digest == KECCAK_FIB_DIGEST, f"the Keccak circuit's digest "
+          f"{digest} ({data.common.hasher_name}) is not the JAX package's")
+    log(f"  build on the card: {build_s:.3f} s (host Keccak "
+        f"{sum(v['s'] for v in build_clock.values()):.4f} s), "
+        f"2^{data.common.degree_bits()} rows, digest {digest}, the JAX "
+        f"package's; launches {build_launches}")
+    sess, compile_ms = new_session(data)
+    per_run = []
+
+    def prove(rng, timing=None):
+        clock = {}
+        with host_keccak_clock(clock):
+            t = time.perf_counter()
+            proof = sess.prove(pw, rng=rng, timing=timing)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        host = sum(v["s"] for v in clock.values())
+        per_run.append({"wall_s": wall, "host_keccak_s": host,
+                        "calls": clock})
+        log(f"    host Keccak {host:.4f} s of {wall:.4f} s ("
+            f"{100 * host / wall:.1f}%): trees "
+            f"{clock['hash_leaves']['s'] + clock['compress_batch']['s']:.4f}"
+            f" s ({clock['hash_leaves']['calls']} leaf batches, "
+            f"{clock['compress_batch']['calls']} levels; "
+            f"{clock['hash_leaves']['bytes_in']} bytes of leaves copied "
+            f"down), {clock['permute']['calls']} transcript and grind "
+            f"permutations {clock['permute']['s']:.4f} s")
+        return proof
+
+    res, proof = prove_session(sess, pw, (), "Keccak Fibonacci",
+                               KECCAK_FIB_PROOF_SHA256, True,
+                               want_pis=want_pis, warm_runs=EARLIER_WARM_RUNS,
+                               prove=prove)
+    for key in KECCAK_KEYS + KECCAK_UNUSED:
+        n = sum(res["launches"][e] for e, v in KERNELS.items()
+                if v[0] == key)
+        check((n > 0) == (key in KECCAK_KEYS), f"{key} launched {n} times "
+              "on the Keccak proof")
+    log(f"  the Keccak proof launched {', '.join(KECCAK_KEYS)} and none of "
+        f"{', '.join(KECCAK_UNUSED)}")
+    kinds = (ProofVerificationError, FriVerificationError)
+    try:
+        data.common.hasher_name = POSEIDON_CONFIG.name
+        why = refused(lambda: sess.verify(proof), kinds, "")
+    finally:
+        data.common.hasher_name = KECCAK_CONFIG.name
+    check(why is not None, "the port's verifier accepted the Keccak proof "
+          "under Poseidon's hasher name")
+    log(f"  the port's verifier refuses it under Poseidon's hasher name "
+        f"({why[:120]})")
+    bad = copy.deepcopy(proof)
+    bad.proof.openings.wires[0][0] ^= np.uint64(1)
+    why = refused(lambda: sess.verify(bad), kinds, "")
+    check(why is not None, "the port's verifier accepted the Keccak proof "
+          "with an opened wire flipped")
+    log(f"  ... and with one opened wire flipped ({why[:120]})")
+    res.update(build_s=build_s, build_launches=build_launches,
+               compile_ms=compile_ms, k6_form=k6_form_of(sess),
+               degree_bits=data.common.degree_bits(),
+               keccak_host=per_run)
+    return res
+
+
 def check_plan_witness(sess, pw, dev) -> dict:
     """The session's kept witness plan against the host engine
     (iop/generator.py) on one random.Random(0) stream: the same
@@ -4167,6 +4435,17 @@ def main() -> int:
                "keccak, sponge, logic, memory and arithmetic tables; the "
                "sender recovered in the kernel), proved and verified"):
         paths["block"] = phase_block(dev)
+    torch.cuda.empty_cache()
+    with phase("9o the storage-op execution (SLOAD and SSTORE through the "
+               "syscall jumptable to the kernel's storage handlers, the "
+               "state trie hashed) and its six-table proof, proved and "
+               "verified"):
+        paths["storage"] = phase_storage(dev)
+    torch.cuda.empty_cache()
+    with phase("9p the Fibonacci circuit under the Keccak hasher "
+               "configuration (host Keccak trees and transcript, the LDEs "
+               "and the quotient on the card), proved and verified"):
+        paths["keccak"] = phase_keccak(dev)
     with phase("10 kernels line"):
         line = kernels_line(kern, paths, smi, waves)
         line["narrow_levels"] = narrow
@@ -4187,7 +4466,8 @@ def main() -> int:
                       "compress_s", "decompress_s", "cyclic", "fib",
                       "tables", "replay_s", "aggregate_s", "wrap_all_s",
                       "evm_setup_s", "place_s", "n_ops", "rows_used",
-                      "degree_bits", "asm_s"):
+                      "degree_bits", "asm_s", "exec_s", "readback",
+                      "keccak_host", "build_launches"):
                 if f in p:
                     line["paths"][k][f] = p[f]
     with phase("11 int32 multiply rate and field-product SASS"):

@@ -216,7 +216,7 @@ def recursive_stark_circuit(stark: Stark,
     builder, pt, state_before, ctl_challenges = wrapper_builder(
         stark, cross_table_lookups, table, degree_bits, inner_config,
         circuit_config)
-    data = builder.build(device)
+    data = builder.build(device=device)
     return TableWrapperCircuit(
         data=data, session=ProverSession(data, device, timing=timing),
         proof_target=pt,

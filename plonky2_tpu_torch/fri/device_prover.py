@@ -50,9 +50,13 @@ device_fri_proof):
   step and the device's is checked word for word.
 * layered (``_device_fri_proof_layered``): the host challenger draws each
   beta after the cap comes down, the host uploads beta's powers, and the
-  grind (K8) starts from a state the host uploads.  The JAX package keeps
-  it for its non-algebraic hasher; here the tests hold the fused path
-  against it.
+  grind (K8) starts from a state the host uploads.  It is the path of a
+  non-algebraic hasher (the Keccak configuration), as in the JAX package:
+  each layer's tree is hashed on the host (hash/merkle.py:MerkleTree),
+  the transcript runs on the host with the hasher's permutation and the
+  grind is the host's scalar one (fri/prover.py:host_pow_grind), while the
+  folds and the layers' LDEs stay on the device.  For Poseidon the tests
+  hold the fused path against it.
 
 Both give the same proof.
 """
@@ -69,8 +73,8 @@ from ..field import gf
 from ..field import gf2
 from ..field import goldilocks as gl
 from ..field.convert import to_u64
-from ..hash import merkle_torch
-from ..hash.merkle import DeviceMerkleTree
+from ..hash.hashers import POSEIDON_CONFIG
+from ..hash.merkle import DeviceMerkleTree, merkle_tree
 from ..iop.challenger_torch import DeviceChallenger
 from ..ops import ntt
 from ..ops.openings import CHUNK_ELEMS
@@ -159,16 +163,15 @@ def device_composition(instance, oracles, alpha, openings_batches,
     return comp, ntt.coset_intt(natural)
 
 
-def commit_layer(values_br, arity: int, cap_height: int) -> DeviceMerkleTree:
+def commit_layer(values_br, arity: int, cap_height: int,
+                 hasher=POSEIDON_CONFIG) -> DeviceMerkleTree:
     """Leaf j (column j of a (2 * arity, n / arity) matrix) holds values
     j * arity .. j * arity + arity - 1, each as its two coordinates."""
     c0, c1 = values_br
     m = c0.shape[0] // arity
     leaves = torch.stack([c0.reshape(m, arity), c1.reshape(m, arity)],
                          dim=-1).reshape(m, 2 * arity).T.contiguous()
-    return DeviceMerkleTree(
-        leaves, merkle_torch.build_digest_levels(leaves, cap_height),
-        cap_height)
+    return merkle_tree(leaves, cap_height, hasher)
 
 
 def fold_coeffs(coeffs: torch.Tensor, beta, arity: int) -> torch.Tensor:
@@ -191,7 +194,7 @@ def fold_coeffs(coeffs: torch.Tensor, beta, arity: int) -> torch.Tensor:
 
 
 def device_fri_committed_trees(coeffs, values_br, challenger, fri_params,
-                               timing=None):
+                               timing=None, hasher=POSEIDON_CONFIG):
     """The commit phase: one tree per fold layer; returns (trees, final
     coefficients (final_len, 2) uint64)."""
     timing = timing if timing is not None else NoopTiming()
@@ -202,7 +205,7 @@ def device_fri_committed_trees(coeffs, values_br, challenger, fri_params,
     for i, arity_bits in enumerate(layers):
         arity = 1 << arity_bits
         with timing.scope(f"layer {i} commit"):
-            tree = commit_layer(values_br, arity, cap_height)
+            tree = commit_layer(values_br, arity, cap_height, hasher)
             challenger.observe_cap(tree.cap)
         trees.append(tree)
         beta = challenger.get_extension_challenge()
@@ -221,14 +224,15 @@ def device_fri_committed_trees(coeffs, values_br, challenger, fri_params,
 
 
 def _device_fri_proof_layered(initial_trees, coeffs, values_br, challenger,
-                              fri_params, timing=None) -> FriProof:
+                              fri_params, timing=None,
+                              hasher=POSEIDON_CONFIG) -> FriProof:
     timing = timing if timing is not None else NoopTiming()
     n = values_br[0].shape[0]
     trees, final = device_fri_committed_trees(coeffs, values_br, challenger,
-                                              fri_params, timing)
+                                              fri_params, timing, hasher)
     with timing.scope("proof of work"):
         pow_witness = fri_proof_of_work(challenger, fri_params.config,
-                                        values_br[0].device)
+                                        values_br[0].device, hasher)
     with timing.scope("queries"):
         indices = [int(c) % n for c in challenger.get_n_challenges(
             fri_params.config.num_query_rounds)]
@@ -266,7 +270,11 @@ class _HostCopy:
 
 
 def _device_fri_proof_fused(initial_trees, coeffs, values_br, challenger,
-                            fri_params, timing=None) -> FriProof:
+                            fri_params, timing=None,
+                            hasher=POSEIDON_CONFIG) -> FriProof:
+    if not hasher.algebraic:
+        raise ValueError("the fused FRI runs Poseidon's transcript on the "
+                         f"device, not {hasher.name}'s")
     timing = timing if timing is not None else NoopTiming()
     cfg = fri_params.config
     layers = fri_params.reduction_arity_bits
@@ -341,22 +349,27 @@ def _device_fri_proof_fused(initial_trees, coeffs, values_br, challenger,
 
 
 def device_fri_proof(initial_trees, coeffs, values_br, challenger,
-                     fri_params, timing=None) -> FriProof:
+                     fri_params, timing=None,
+                     hasher=POSEIDON_CONFIG) -> FriProof:
     """Steps 2-3 for the composition's values and coefficients: the fused
-    path where every initial tree lives on the device (each of the port's
-    does), else the layered one (plonky2_tpu/fri/device_prover.py:
-    device_fri_proof)."""
-    if all(isinstance(t, DeviceMerkleTree) for t in initial_trees):
+    path for an algebraic hasher whose initial trees live on the device
+    (each of the port's does), else the layered one
+    (plonky2_tpu/fri/device_prover.py:device_fri_proof)."""
+    if hasher.algebraic and all(isinstance(t, DeviceMerkleTree)
+                                for t in initial_trees):
         return _device_fri_proof_fused(initial_trees, coeffs, values_br,
-                                       challenger, fri_params, timing)
+                                       challenger, fri_params, timing,
+                                       hasher)
     return _device_fri_proof_layered(initial_trees, coeffs, values_br,
-                                     challenger, fri_params, timing)
+                                     challenger, fri_params, timing, hasher)
 
 
 def device_prove_openings(instance, oracles, fri_openings, challenger,
-                          fri_params, timing=None) -> FriProof:
+                          fri_params, timing=None,
+                          hasher=POSEIDON_CONFIG) -> FriProof:
     """The opening proof of `oracles` (PolynomialBatch) for `instance`, with
-    the claimed values `fri_openings` already observed."""
+    the claimed values `fri_openings` already observed; the fold layers'
+    trees are the hasher's."""
     timing = timing if timing is not None else NoopTiming()
     alpha = challenger.get_extension_challenge()
     lde_bits = oracles[0].degree_log + fri_params.config.rate_bits
@@ -364,4 +377,4 @@ def device_prove_openings(instance, oracles, fri_openings, challenger,
         values_br, coeffs = device_composition(
             instance, oracles, alpha, fri_openings.batches, lde_bits)
     return device_fri_proof([o.merkle_tree for o in oracles], coeffs,
-                            values_br, challenger, fri_params, timing)
+                            values_br, challenger, fri_params, timing, hasher)

@@ -6,6 +6,12 @@ plonky2_tpu/fri/oracle.py:PolynomialBatch (``from_values``, ``from_coeffs``,
 Coefficients, the leaf matrix and the digest levels stay on the device; the
 host views are made on first use.  Leaves are LDE rows in bit-reversed
 order, one column per polynomial (+ 4 salt columns when blinding).
+
+The tree is the hasher's (hash/hashers.py).  Poseidon's is hashed on the
+device (K1, K2).  A non-algebraic hasher's (Keccak) is hashed on the host
+from the leaves brought down once (hash/merkle.py:MerkleTree), as the JAX
+package hashes it; the LDE still runs on the device and the leaves stay
+there, where the quotient and the openings read them.
 """
 from __future__ import annotations
 
@@ -16,8 +22,10 @@ import torch
 
 from .. import resolve_device
 from ..field.convert import from_u64, to_u64
-from ..hash.merkle import DeviceMerkleTree
-from ..ops.commit import commit_from_coeffs, commit_from_values, device_salt
+from ..hash.hashers import POSEIDON_CONFIG
+from ..hash.merkle import DeviceMerkleTree, merkle_tree
+from ..ops import ntt
+from ..ops.commit import device_salt, lde_leaves
 from ..utils.bits import log2_strict
 
 
@@ -61,39 +69,33 @@ class PolynomialBatch:
     @staticmethod
     def from_values(values, rate_bits: int, blinding: bool, cap_height: int,
                     salt_rng: Optional[np.random.Generator] = None,
-                    device=None) -> "PolynomialBatch":
+                    device=None, hasher=POSEIDON_CONFIG) -> "PolynomialBatch":
         """Commit to the polynomials with these evaluations (B, n) on the
         2^k-th roots of unity.  Runs on `device` (default cuda, also for
         a CPU tensor: only device="cpu" runs the plain versions)."""
         values = _on_device(values, device)
-        degree = values.shape[-1]
-        salt = device_salt(degree << rate_bits, values.device,
-                           salt_rng=salt_rng) if blinding else None
-        c, leaves, levels = commit_from_values(values, rate_bits, cap_height,
-                                               salt)
-        return PolynomialBatch._assemble_device(c, leaves, levels, degree,
-                                                rate_bits, blinding,
-                                                cap_height)
+        return PolynomialBatch._commit(ntt.ntt(values, inverse=True),
+                                      rate_bits, blinding, cap_height,
+                                      salt_rng, hasher)
 
     @staticmethod
     def from_coeffs(polynomials, rate_bits: int, blinding: bool,
                     cap_height: int,
                     salt_rng: Optional[np.random.Generator] = None,
-                    device=None) -> "PolynomialBatch":
-        coeffs = _on_device(polynomials, device)
-        degree = coeffs.shape[-1]
-        salt = device_salt(degree << rate_bits, coeffs.device,
-                           salt_rng=salt_rng) if blinding else None
-        leaves, levels = commit_from_coeffs(coeffs, rate_bits, cap_height,
-                                            salt)
-        return PolynomialBatch._assemble_device(coeffs, leaves, levels,
-                                                degree, rate_bits, blinding,
-                                                cap_height)
+                    device=None, hasher=POSEIDON_CONFIG) -> "PolynomialBatch":
+        return PolynomialBatch._commit(_on_device(polynomials, device),
+                                      rate_bits, blinding, cap_height,
+                                      salt_rng, hasher)
 
     @staticmethod
-    def _assemble_device(coeffs_dev, leaves_dev, levels_dev, degree: int,
-                         rate_bits: int, blinding: bool,
-                         cap_height: int) -> "PolynomialBatch":
-        tree = DeviceMerkleTree(leaves_dev, levels_dev, cap_height)
-        return PolynomialBatch(coeffs_dev, leaves_dev, tree,
+    def _commit(coeffs_dev, rate_bits: int, blinding: bool, cap_height: int,
+                salt_rng, hasher) -> "PolynomialBatch":
+        """The LDE (and salt rows) on the coefficients' device, then the
+        hasher's tree of the leaves."""
+        degree = coeffs_dev.shape[-1]
+        salt = device_salt(degree << rate_bits, coeffs_dev.device,
+                           salt_rng=salt_rng) if blinding else None
+        leaves = lde_leaves(coeffs_dev, rate_bits, salt)
+        return PolynomialBatch(coeffs_dev, leaves,
+                               merkle_tree(leaves, cap_height, hasher),
                                log2_strict(degree), rate_bits, blinding)

@@ -20,22 +20,42 @@ from typing import List
 import numpy as np
 
 from ..field.convert import from_u64
+from ..hash import poseidon as pos
 from ..hash import poseidon_cuda as pc
+from ..hash.hashers import POSEIDON_CONFIG
 from .proof import FriInitialTreeProof, FriQueryRound, FriQueryStep
 
 
-def fri_proof_of_work(challenger, config, device) -> int:
+def fri_proof_of_work(challenger, config, device,
+                      hasher=POSEIDON_CONFIG) -> int:
     """Grind on `device` (the challenger's duplex state goes up, the
-    witness comes down), observe the witness, draw the response and check
-    it."""
+    witness comes down), or on the host for a non-algebraic hasher;
+    observe the witness, draw the response and check it."""
     bits = config.proof_of_work_bits
-    base = from_u64(np.array(challenger.duplex_input_state(),
-                             dtype=np.uint64), device)
-    witness = pc.pow_grind_cuda(base, len(challenger.input_buffer), bits)
+    if hasher.algebraic:
+        base = from_u64(np.array(challenger.duplex_input_state(),
+                                 dtype=np.uint64), device)
+        witness = pc.pow_grind_cuda(base, len(challenger.input_buffer), bits)
+    else:
+        witness = host_pow_grind(challenger, bits, hasher)
     challenger.observe_element(witness)
     if challenger.get_challenge() >= 1 << (64 - bits):
         raise RuntimeError("proof-of-work response above its bound")
     return witness
+
+
+def host_pow_grind(challenger, bits: int, hasher) -> int:
+    """The smallest witness whose duplexing, through the hasher's
+    permutation, leaves a response below 2^(64 - bits)."""
+    bound = 1 << (64 - bits)
+    state = challenger.duplex_input_state()
+    slot = len(challenger.input_buffer)
+    witness = 0
+    while True:
+        state[slot] = witness
+        if hasher.permute(state)[pos.SPONGE_RATE - 1] < bound:
+            return witness
+        witness += 1
 
 
 def fri_prover_query_rounds(initial_trees, trees, indices,

@@ -1,7 +1,8 @@
 """The FRI verifier (the port's copy of plonky2_tpu/fri/verifier.py;
 reference plonky2/src/fri/verifier.rs).
 
-Host logic on python ints: the query rounds' Merkle paths (hash/merkle.py),
+Host logic on python ints: the query rounds' Merkle paths (hash/merkle.py,
+with the circuit's hasher),
 the initial combination, the folds by barycentric interpolation and the
 final polynomial.  It shares no code with the prover's device path, so it
 checks the kernels independently.
@@ -14,6 +15,7 @@ import numpy as np
 
 from ..field import extension as ge
 from ..field import goldilocks as gl
+from ..hash.hashers import POSEIDON_CONFIG
 from ..hash.merkle import verify_merkle_proof_to_cap
 from ..utils.bits import log2_strict, reverse_bits
 from .config import FriConfig, FriParams
@@ -151,10 +153,12 @@ def fri_verifier_query_round(instance: FriInstanceInfo,
                              precomputed: PrecomputedReducedOpenings,
                              initial_merkle_caps, proof: FriProof,
                              x_index: int, n: int, round_proof,
-                             params: FriParams) -> None:
+                             params: FriParams,
+                             hasher=POSEIDON_CONFIG) -> None:
     for (evals, merkle_proof), cap in zip(
             round_proof.initial_trees_proof.evals_proofs, initial_merkle_caps):
-        _ensure(verify_merkle_proof_to_cap(evals, x_index, cap, merkle_proof),
+        _ensure(verify_merkle_proof_to_cap(evals, x_index, cap, merkle_proof,
+                                           hasher),
                 "initial Merkle proof invalid")
 
     log_n = log2_strict(n)
@@ -178,7 +182,7 @@ def fri_verifier_query_round(instance: FriInstanceInfo,
                                       challenges.fri_betas[i])
         _ensure(verify_merkle_proof_to_cap(
             evals.reshape(-1), coset_index, proof.commit_phase_merkle_caps[i],
-            round_proof.steps[i].merkle_proof),
+            round_proof.steps[i].merkle_proof, hasher),
             f"commit-phase proof {i} invalid")
         subgroup_x = pow(subgroup_x, arity, gl.P)
         x_index = coset_index
@@ -190,7 +194,8 @@ def fri_verifier_query_round(instance: FriInstanceInfo,
 
 def verify_fri_proof(instance: FriInstanceInfo, openings: FriOpenings,
                      challenges: FriChallenges, initial_merkle_caps,
-                     proof: FriProof, params: FriParams) -> None:
+                     proof: FriProof, params: FriParams,
+                     hasher=POSEIDON_CONFIG) -> None:
     n = params.lde_size()
     fri_verify_proof_of_work(challenges.fri_pow_response, params.config)
     _ensure(params.config.num_query_rounds == len(proof.query_round_proofs),
@@ -200,4 +205,4 @@ def verify_fri_proof(instance: FriInstanceInfo, openings: FriOpenings,
                                     proof.query_round_proofs):
         fri_verifier_query_round(instance, challenges, precomputed,
                                  initial_merkle_caps, proof, x_index, n,
-                                 round_proof, params)
+                                 round_proof, params, hasher)

@@ -2,12 +2,16 @@
 
 The port's counterpart of plonky2_tpu/hash/merkle.py: leaves and digest
 levels stay on the device, and the cap is copied to the host when it is
-first read, so building a tree never waits for the card.  ``gather`` takes
+first read, so building a tree never waits for the card.  ``MerkleTree``
+is the tree of a hasher that runs on the host (the non-algebraic Keccak
+configuration, hash/hashers.py): its digests are computed on the host
+from the leaves brought down once, and placed beside the leaves, which
+stay where they lie, so that it answers queries as the device tree does.  ``gather`` takes
 the rows and sibling paths of many queries on the device from device
 indices (the JAX package's ``tree_fetch`` in its fused FRI); ``prefetch``
 does the same from host indices with one copy to the host, and ``store``
 keeps rows and paths that came to the host with other data.  Proofs verify
-against the cap on the host with the scalar permutation (hash/poseidon.py).
+against the cap on the host with the hasher's scalar functions.
 """
 from __future__ import annotations
 
@@ -17,9 +21,10 @@ from typing import List
 import numpy as np
 import torch
 
-from ..field.convert import to_u64
+from ..field.convert import from_u64, to_u64
 from ..utils.bits import log2_strict
-from . import poseidon as pos
+from . import merkle_torch
+from .hashers import POSEIDON_CONFIG
 
 
 @dataclass
@@ -105,13 +110,67 @@ class DeviceMerkleTree:
         return MerkleProof([s.copy() for s in self._paths[leaf_index]])
 
 
+def build_digest_levels(leaves: np.ndarray, cap_height: int,
+                        hasher) -> List[np.ndarray]:
+    """(N, L) leaves -> [(N, 4), (N/2, 4), ..., (2^cap_height, 4)] digests
+    by a non-algebraic hasher on the host, one batch a level (JAX
+    hash/merkle.py:32).  An algebraic hasher's tree is hashed on the device
+    (hash/merkle_torch.py) and is refused here."""
+    if hasher.algebraic:
+        raise ValueError(f"{hasher.name} trees are hashed on the device "
+                         "(merkle_tree), not on the host")
+    bits = log2_strict(leaves.shape[0])
+    if cap_height > bits:
+        raise ValueError(f"cap height {cap_height} above tree height {bits}")
+    levels = [hasher.hash_leaves(leaves)]
+    for _ in range(bits - cap_height):
+        cur = levels[-1]
+        levels.append(hasher.compress_batch(cur[0::2], cur[1::2]))
+    return levels
+
+
+class MerkleTree(DeviceMerkleTree):
+    """A tree hashed on the host by the non-algebraic `hasher` (JAX
+    hash/merkle.py:62).
+    ``leaves`` is an (L, N) int64 tensor, which stays on its device and is
+    copied to the host once, or (N, L) uint64 rows on the host (the JAX
+    package's form).  The digest levels are placed beside the leaves, so
+    rows and paths are read as from a DeviceMerkleTree."""
+
+    def __init__(self, leaves, cap_height: int, hasher):
+        if isinstance(leaves, torch.Tensor):
+            rows = to_u64(leaves).T
+        else:
+            rows = np.asarray(leaves, dtype=np.uint64)
+            leaves = from_u64(rows.T.copy(), "cpu")
+        levels = build_digest_levels(rows, cap_height, hasher)
+        super().__init__(leaves, [from_u64(lv.T.copy(), leaves.device)
+                                  for lv in levels], cap_height)
+        self.keep_cap(levels[-1].T)
+        self.hasher = hasher
+
+
+def merkle_tree(leaves: torch.Tensor, cap_height: int,
+                hasher=POSEIDON_CONFIG) -> DeviceMerkleTree:
+    """The tree of (L, N) leaves on their device: hashed there by K1 and
+    K2 for an algebraic hasher (hash/merkle_torch.py), else on the host
+    (MerkleTree)."""
+    if not hasher.algebraic:
+        return MerkleTree(leaves, cap_height, hasher)
+    return DeviceMerkleTree(
+        leaves, merkle_torch.build_digest_levels(leaves, cap_height),
+        cap_height)
+
+
 def verify_merkle_proof_to_cap(leaf, leaf_index: int, cap: MerkleCap,
-                               proof: MerkleProof) -> bool:
+                               proof: MerkleProof,
+                               hasher=POSEIDON_CONFIG) -> bool:
     """Hash the leaf, walk the siblings up, and compare with the cap entry."""
-    h = pos.hash_or_noop_ints(np.asarray(leaf, dtype=np.uint64).reshape(-1))
+    h = hasher.hash_or_noop_ints(np.asarray(leaf, dtype=np.uint64).reshape(-1))
     idx = leaf_index
     for sib in proof.siblings:
         sib = [int(x) for x in sib]
-        h = pos.compress_ints(sib, h) if idx & 1 else pos.compress_ints(h, sib)
+        h = (hasher.compress_ints(sib, h) if idx & 1
+             else hasher.compress_ints(h, sib))
         idx >>= 1
     return [int(x) for x in cap.digests[idx]] == h

@@ -1,14 +1,15 @@
 """Merkle path compression: the path nodes that several proofs on one tree
 share are kept once (the port's copy of
 plonky2_tpu/hash/path_compression.py; reference
-plonky2/src/hash/path_compression.rs).  Poseidon digests, on the host."""
+plonky2/src/hash/path_compression.rs).  The hasher's digests (Poseidon's
+unless given), on the host."""
 from __future__ import annotations
 
 from typing import List
 
 import numpy as np
 
-from . import poseidon as pos
+from .hashers import POSEIDON_CONFIG
 from .merkle import MerkleProof
 
 
@@ -40,14 +41,15 @@ def compress_merkle_proofs(cap_height: int, indices: List[int],
 
 def decompress_merkle_proofs(leaves_data: List, leaves_indices: List[int],
                              compressed_proofs: List[MerkleProof],
-                             height: int,
-                             cap_height: int) -> List[MerkleProof]:
+                             height: int, cap_height: int,
+                             hasher=POSEIDON_CONFIG) -> List[MerkleProof]:
     """The inverse of compress_merkle_proofs; the leaves and indices come
-    in the order they were compressed in."""
+    in the order they were compressed in, and the digests are the
+    hasher's."""
     num_leaves = 1 << height
     seen = {}
     for i, v in zip(leaves_indices, leaves_data):
-        seen[i + num_leaves] = pos.hash_or_noop_ints(
+        seen[i + num_leaves] = hasher.hash_or_noop_ints(
             np.asarray(v, dtype=np.uint64).reshape(-1))
 
     sibling_iters = [iter(p.siblings) for p in compressed_proofs]
@@ -61,9 +63,9 @@ def decompress_merkle_proofs(leaves_data: List, leaves_indices: List[int],
                     int(x) for x in np.asarray(next(sib_iter)).reshape(4)]
             sibling = seen[sibling_index]
             if index % 2 == 0:
-                parent = pos.compress_ints(current, sibling)
+                parent = hasher.compress_ints(current, sibling)
             else:
-                parent = pos.compress_ints(sibling, current)
+                parent = hasher.compress_ints(sibling, current)
             seen[index >> 1] = parent
 
     out = []

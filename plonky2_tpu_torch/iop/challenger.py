@@ -5,7 +5,9 @@ same transcript: overwrite-mode absorption of rate-8 blocks, a duplexing
 whenever the input buffer fills or a challenge is drawn with inputs
 pending, challenges popped from the END of the output buffer, and every
 observation clearing the buffered outputs.  Values are canonical python ints
-(numpy uint64 accepted).  The permutation is hash/poseidon.py:permute_ints.
+(numpy uint64 accepted).  The permutation is hash/poseidon.py:permute_ints
+unless another is given: the Keccak configuration passes its hash-onion
+permutation (hash/hashers.py:KeccakConfig.permute).
 
 ``RecursiveChallenger`` is the same transcript in a circuit, over targets
 (JAX iop/challenger.py:RecursiveChallenger), each permutation a Poseidon
@@ -21,10 +23,13 @@ from ..hash import poseidon as pos
 
 
 class Challenger:
-    def __init__(self):
+    def __init__(self, permutation=None):
+        """permutation: [12 ints] -> [12 ints], Poseidon unless given
+        (reference Challenger<F, C::Hasher>)."""
         self.sponge_state = [0] * pos.WIDTH
         self.input_buffer: List[int] = []
         self.output_buffer: List[int] = []
+        self.permutation = permutation
 
     def observe_element(self, element) -> None:
         self.output_buffer.clear()
@@ -95,7 +100,8 @@ class Challenger:
     def _duplexing(self) -> None:
         if len(self.input_buffer) > pos.SPONGE_RATE:
             raise RuntimeError("input buffer beyond the sponge rate")
-        state = pos.permute_ints(self.duplex_input_state())
+        permute = self.permutation or pos.permute_ints
+        state = permute(self.duplex_input_state())
         self.input_buffer.clear()
         self.sponge_state = state
         self.output_buffer = list(state[:pos.SPONGE_RATE])

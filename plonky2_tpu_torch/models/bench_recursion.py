@@ -45,10 +45,12 @@ def dummy_proof_tuple(config: CircuitConfig, log2_size: int, device=None,
 
 
 def recursion_circuit(inner_cd, config: CircuitConfig, min_degree_bits=None,
-                      device=None, timing=None):
+                      device=None, timing=None, gc=None):
     """(CircuitData, proof target, verifier-data target) of a circuit that
     verifies one proof of `inner_cd`'s shape (reference
-    bench_recursion.rs:93-142)."""
+    bench_recursion.rs:93-142); ``gc`` is the circuit's own hasher
+    configuration (CircuitBuilder.build; KECCAK_CONFIG for the final
+    wrapper of a chain), whatever the inner proof's."""
     builder = CircuitBuilder(config)
     pt = builder.add_virtual_proof_with_pis(inner_cd)
     vt = builder.add_virtual_verifier_data(
@@ -58,7 +60,7 @@ def recursion_circuit(inner_cd, config: CircuitConfig, min_degree_bits=None,
         min_gates = (1 << (min_degree_bits - 1)) + 1
         while builder.num_gates() < min_gates:
             builder.add_gate(NoopGate(), [])
-    return builder.build(device=device, timing=timing), pt, vt
+    return builder.build(gc=gc, device=device, timing=timing), pt, vt
 
 
 def recursion_witness(pt, vt, inner) -> PartialWitness:

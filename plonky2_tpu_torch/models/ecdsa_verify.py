@@ -79,4 +79,4 @@ def build_ecdsa_circuit(device=None, seed: int = SEED,
     """(CircuitData built on `device` (default cuda), its PartialWitness,
     which is empty: every input is a constant, EcdsaInputs)."""
     b, inputs = ecdsa_builder(seed, wrong_signature)
-    return b.build(device), PartialWitness(), inputs
+    return b.build(device=device), PartialWitness(), inputs

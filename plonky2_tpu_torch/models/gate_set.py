@@ -128,7 +128,7 @@ def build_gate_set_circuit(device=None, build: bool = True, **sizes):
     b, pw = CircuitBuilder(CircuitConfig.standard_ecc_config()), \
         PartialWitness()
     place_gate_set(b, pw, MemoryOpTarget, **sizes)
-    return (b.build(device), pw) if build else (b.build_common(), None)
+    return (b.build(device=device), pw) if build else (b.build_common(), None)
 
 
 def build_non_permutation_circuit(device=None):
@@ -146,4 +146,4 @@ def build_non_permutation_circuit(device=None):
     for (t,), v in zip(a_t + b_t, a_vals + b_vals):
         pw.set_target(t, v)
     b.assert_permutation(a_t, b_t)
-    return b.build(device), pw
+    return b.build(device=device), pw

@@ -57,7 +57,7 @@ def build_tree_circuits(config: CircuitConfig | None = None, device=None,
     return build_tree(
         CircuitBuilder, config,
         lambda c: build_fibonacci_circuit(c, device=device),
-        common_data_for_recursion, lambda b: b.build(device), stage)
+        common_data_for_recursion, lambda b: b.build(device=device), stage)
 
 
 def tree_witnesses(tree: dict, inner_proof, pw_cls=PartialWitness,

@@ -1,5 +1,5 @@
-"""Device commit pipeline: IFFT -> coset LDE in leaf order -> [salt rows] ->
-Poseidon leaf hash -> Merkle levels.
+"""Device commit pipeline: the coset LDE in leaf order, then the salt rows
+(fri/oracle.py hashes the leaves into the hasher's tree).
 
 The port's counterpart of plonky2_tpu/ops/commit.py (``commit_from_values``,
 ``commit_from_coeffs``, ``device_salt``).  Leaves are column-major (B[+4],
@@ -18,31 +18,16 @@ import torch
 from ..field import gf
 from ..field import goldilocks as gl
 from ..field.convert import from_u64
-from ..hash import merkle_torch
 from . import ntt
 
 
-def _commit_coeffs(coeffs: torch.Tensor, rate_bits: int, cap_height: int,
-                   salt=None):
+def lde_leaves(coeffs: torch.Tensor, rate_bits: int, salt=None):
+    """coefficients (B, n) -> leaves (B[+4], n << rate_bits): the coset
+    LDE in leaf order, then the salt rows."""
     leaves = ntt.lde_coset_ntt_bitrev(coeffs, rate_bits)
     if salt is not None:
         leaves = torch.cat([leaves, salt])
-    return leaves, merkle_torch.build_digest_levels(leaves, cap_height)
-
-
-def commit_from_values(values: torch.Tensor, rate_bits: int, cap_height: int,
-                       salt=None):
-    """values (B, n) -> (coeffs (B, n), leaves (B[+4], n << rate_bits),
-    digest levels)."""
-    coeffs = ntt.ntt(values, inverse=True)
-    leaves, levels = _commit_coeffs(coeffs, rate_bits, cap_height, salt)
-    return coeffs, leaves, levels
-
-
-def commit_from_coeffs(polys: torch.Tensor, rate_bits: int, cap_height: int,
-                       salt=None):
-    """coefficients (B, n) -> (leaves, digest levels)."""
-    return _commit_coeffs(polys, rate_bits, cap_height, salt)
+    return leaves
 
 
 def device_salt(lde_size: int, device, seed: int | None = None,

@@ -398,11 +398,12 @@ class CircuitBuilder(ExtensionGadgets, SplitGadgets, U32Gadgets,
         sigmas, the commitment and the generator index: all that
         plonk/recursion.py:common_data_for_recursion reads of the circuits
         it builds.  The builder is finished as build() finishes it."""
-        return self._finish_gates()[0]
+        return self._finish_gates(POSEIDON_CONFIG)[0]
 
-    def _finish_gates(self):
+    def _finish_gates(self, gc):
         """Place the public-inputs hash, the constant gates and the
-        padding; (CommonCircuitData, the constant polynomials' values)."""
+        padding; (CommonCircuitData naming the hasher configuration `gc`,
+        the constant polynomials' values)."""
         config = self.config
         rate_bits = config.fri_config.rate_bits
         cap_height = config.fri_config.cap_height
@@ -462,24 +463,27 @@ class CircuitBuilder(ExtensionGadgets, SplitGadgets, U32Gadgets,
                   for i in range(config.num_routed_wires)],
             num_partial_products=(-(-config.num_routed_wires
                                     // quotient_degree_factor) - 1),
-            hasher_name=POSEIDON_CONFIG.name)
+            hasher_name=gc.name)
         if (self.goal_common_data is not None
                 and self.goal_common_data != common):
             raise ValueError("The expected circuit data passed to cyclic "
                              "recursion did not match the actual circuit")
         return common, constant_vecs
 
-    def build(self, device=None, timing=None) -> CircuitData:
-        """The circuit's data; the constants-sigmas commitment runs on
-        `device` (default cuda).  ``timing.scope(name)`` wraps each stage
-        when given."""
+    def build(self, gc=None, device=None, timing=None) -> CircuitData:
+        """The circuit's data under the hasher configuration `gc`
+        (hash/hashers.py, Poseidon unless given: reference build::<C>'s
+        GenericConfig), which makes the constants-sigmas commitment's tree
+        and the circuit digest and which the CommonCircuitData names; the
+        commitment's LDE runs on `device` (default cuda).
+        ``timing.scope(name)`` wraps each stage when given."""
         timing = timing if timing is not None else NoopTiming()
         dev = resolve_device(device)
-        gc = POSEIDON_CONFIG
+        gc = gc if gc is not None else POSEIDON_CONFIG
         config = self.config
 
         with timing.scope("gates and wiring"):
-            common, constant_vecs = self._finish_gates()
+            common, constant_vecs = self._finish_gates(gc)
             degree = common.degree()
             degree_bits = common.degree_bits()
 
@@ -491,7 +495,7 @@ class CircuitBuilder(ExtensionGadgets, SplitGadgets, U32Gadgets,
             constants_sigmas_commitment = PolynomialBatch.from_values(
                 np.concatenate([constant_vecs, sigma_vecs], axis=0),
                 config.fri_config.rate_bits, False,
-                config.fri_config.cap_height, device=dev)
+                config.fri_config.cap_height, device=dev, hasher=gc)
 
         with timing.scope("generator index"):
             # a slot gate's unused operations get no generator

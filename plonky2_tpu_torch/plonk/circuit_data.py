@@ -15,7 +15,7 @@ import numpy as np
 from ..fri.config import FriParams
 from ..fri.structure import FriInstanceInfo, FriOracleInfo
 from ..gates.gate import Gate, SelectorsInfo
-from ..hash.hashers import POSEIDON_CONFIG
+from ..hash.hashers import POSEIDON_CONFIG, hasher_by_name
 from .config import CircuitConfig
 from .prover_data import ORACLE_BLINDING, fri_instance
 from .verifier import verify
@@ -34,6 +34,11 @@ class CommonCircuitData:
     k_is: List[int]
     num_partial_products: int
     hasher_name: str = POSEIDON_CONFIG.name
+
+    def hasher(self):
+        """The hasher configuration (hash/hashers.py) ``hasher_name``
+        names."""
+        return hasher_by_name(self.hasher_name)
 
     def degree_bits(self) -> int:
         return self.fri_params.degree_bits

@@ -174,7 +174,7 @@ def _get_inferred_elements(cpwp: CompressedProofWithPublicInputs, challenges,
 
 
 def _decompress_fri_proof(cfri: CompressedFriProof, challenges, inferred,
-                          params) -> FriProof:
+                          params, hasher) -> FriProof:
     """reference fri/proof.rs:248-365."""
     indices = challenges.fri_challenges.fri_query_indices
     cap_height = params.config.cap_height
@@ -221,10 +221,11 @@ def _decompress_fri_proof(cfri: CompressedFriProof, challenges, inferred,
             st_evals[i].append(evals)
             st_proofs[i].append(step.merkle_proof)
 
-    it_proofs = [decompress_merkle_proofs(ls, iks, ps, height, cap_height)
+    it_proofs = [decompress_merkle_proofs(ls, iks, ps, height, cap_height,
+                                          hasher)
                  for ls, iks, ps in zip(it_leaves, it_indices, it_proofs)]
     st_proofs = [decompress_merkle_proofs([e.reshape(-1) for e in ls], iks,
-                                          ps, h, cap_height)
+                                          ps, h, cap_height, hasher)
                  for ls, iks, ps, h in zip(st_evals, st_indices, st_proofs,
                                            heights)]
 
@@ -252,7 +253,8 @@ def _decompress(cpwp: CompressedProofWithPublicInputs, public_inputs_hash,
     try:
         inferred = _get_inferred_elements(cpwp, challenges, common_data)
         fri = _decompress_fri_proof(cpwp.proof.opening_proof, challenges,
-                                    inferred, common_data.fri_params)
+                                    inferred, common_data.fri_params,
+                                    common_data.hasher())
     except KeyError as e:
         raise ProofVerificationError(
             f"the compressed proof has no query round at index {e}") from e

@@ -14,7 +14,7 @@ def get_challenges(proof_with_pis: ProofWithPublicInputs, public_inputs_hash,
     num_challenges = config.num_challenges
     proof = proof_with_pis.proof
 
-    ch = Challenger()
+    ch = Challenger(permutation=common_data.hasher().permute)
     ch.observe_hash(circuit_digest)
     ch.observe_hash(public_inputs_hash)
 

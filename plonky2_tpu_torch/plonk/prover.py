@@ -10,6 +10,14 @@ cap, then zeta; the opening set, observed; the FRI opening proof
 (fri/device_prover.py).  The witness comes from the caller (the witness
 generators run before it, in runtime/session.py), with the circuit's data
 from a plonk.prover_data.ProverData.
+
+Every commitment's tree and the transcript are the circuit's hasher's
+(``ProverData.hasher()``).  Under Poseidon the trees are hashed on the
+device and the FRI's transcript runs there (the fused path).  Under the
+non-algebraic Keccak configuration the LDEs, the quotient and the FRI
+folds still run on the device, while the trees are hashed on the host
+from the leaves brought down once a commitment, and the transcript and
+the proof-of-work grind run on the host, as the JAX package runs them.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from ..fri.challenges import observe_openings
 from ..fri.device_prover import device_prove_openings
 from ..fri.oracle import PolynomialBatch, _on_device
 from ..hash import poseidon as pos
+from ..hash.hashers import POSEIDON_CONFIG
 from ..iop.challenger import Challenger
 from ..ops import ntt
 from ..ops.partial_products import device_partial_products
@@ -47,7 +56,7 @@ def quotient_round(wires_values, wires_batch: PolynomialBatch, sigmas,
                    public_inputs_hash, betas, gammas, alphas,
                    quotient: Optional[DeviceQuotient] = None,
                    chunk: Optional[int] = None,
-                   device=None) -> QuotientRound:
+                   device=None, hasher=POSEIDON_CONFIG) -> QuotientRound:
     """wires_values: the (num_wires, degree) witness the wires commitment
     was made from; sigmas: (num_routed_wires, degree) sigma values; shape:
     a CircuitShape; program: the circuit's quotient ConstraintProgram;
@@ -55,14 +64,15 @@ def quotient_round(wires_values, wires_batch: PolynomialBatch, sigmas,
     function of the Z/PP commitment that returns them (the transcript
     observes its cap, then draws them).  ``quotient`` is the
     DeviceQuotient of an earlier call (made here when None, with lanes in
-    chunks of ``chunk``).  Runs on `device` (default cuda)."""
+    chunks of ``chunk``).  The commitments' trees are the hasher's.  Runs
+    on `device` (default cuda)."""
     dev = resolve_device(device)
     wires = _on_device(wires_values, dev)
     zspp = device_partial_products(wires, _on_device(sigmas, dev), betas,
                                    gammas, shape)
     zspp_batch = PolynomialBatch.from_values(
         zspp, shape.rate_bits, shape.zero_knowledge, shape.cap_height,
-        device=dev)
+        device=dev, hasher=hasher)
     if callable(alphas):
         alphas = alphas(zspp_batch)
     if quotient is None:
@@ -74,7 +84,7 @@ def quotient_round(wires_values, wires_batch: PolynomialBatch, sigmas,
     chunks = coeffs.reshape(shape.num_quotient_polys, shape.degree)
     quotient_batch = PolynomialBatch.from_coeffs(
         chunks, shape.rate_bits, shape.zero_knowledge, shape.cap_height,
-        device=dev)
+        device=dev, hasher=hasher)
     return QuotientRound(zspp, zspp_batch, values, coeffs, quotient_batch,
                          quotient)
 
@@ -95,7 +105,7 @@ class ProverContext:
         if cs_batch is None:
             cs_batch = PolynomialBatch.from_coeffs(
                 data.cs_coeffs, s.rate_bits, False, s.cap_height,
-                device=self.device)
+                device=self.device, hasher=data.hasher())
         elif not lies_on(cs_batch.leaves_dev, self.device):
             raise ValueError(f"the constants-sigmas commitment lies on "
                              f"{cs_batch.leaves_dev.device}, the context "
@@ -111,7 +121,7 @@ def start_transcript(data, public_inputs_hash, wires_cap):
     the public-inputs hash and the wires cap observed, then the betas and
     the gammas drawn.  Returns (challenger, betas, gammas)."""
     nch = data.shape.num_challenges
-    challenger = Challenger()
+    challenger = Challenger(permutation=data.hasher().permute)
     challenger.observe_hash(data.circuit_digest)
     challenger.observe_hash(public_inputs_hash)
     challenger.observe_cap(wires_cap)
@@ -137,7 +147,7 @@ def opening_round(challenger, oracles, data, timing=None):
         observe_openings(challenger, fri_openings)
     return openings, device_prove_openings(
         data.get_fri_instance(zeta), oracles, fri_openings, challenger,
-        data.fri_params, timing)
+        data.fri_params, timing, data.hasher())
 
 
 def prove(data, witness, context: Optional[ProverContext] = None,
@@ -153,12 +163,14 @@ def prove(data, witness, context: Optional[ProverContext] = None,
         context = ProverContext(data, dev)
     s = data.shape
     nch = s.num_challenges
+    gc = data.hasher()
     public_inputs = data.public_inputs(witness)
     pih = pos.hash_no_pad(np.array(public_inputs, dtype=np.uint64))
     wires = _on_device(witness, dev)
     with timing.scope("wires commitment"):
         wires_batch = PolynomialBatch.from_values(
-            wires, s.rate_bits, s.zero_knowledge, s.cap_height, device=dev)
+            wires, s.rate_bits, s.zero_knowledge, s.cap_height, device=dev,
+            hasher=gc)
 
     challenger, betas, gammas = start_transcript(
         data, pih, wires_batch.merkle_tree.cap)
@@ -171,7 +183,7 @@ def prove(data, witness, context: Optional[ProverContext] = None,
         q = quotient_round(wires, wires_batch, context.sigmas, s,
                            data.program, context.cs_batch, pih, betas,
                            gammas, alphas, quotient=context.quotient,
-                           device=dev)
+                           device=dev, hasher=gc)
     del wires
     openings, opening_proof = opening_round(
         challenger, [context.cs_batch, wires_batch, q.zspp_batch,

@@ -24,6 +24,7 @@ from ..field import goldilocks as gl
 from ..fri.config import FriConfig, FriParams, FriReductionStrategy
 from ..fri.structure import (FriBatchInfo, FriInstanceInfo, FriOracleInfo,
                              FriPolynomialInfo)
+from ..hash.hashers import POSEIDON_CONFIG, hasher_by_name
 from .circuit_shape import CircuitShape
 
 # blinding flag per oracle: constants-sigmas, wires, Z/PP, quotient
@@ -40,6 +41,12 @@ class ProverData:
     sigmas: object                # (num_routed_wires, degree) sigma values
     circuit_digest: Tuple[int, ...]
     public_input_wires: Tuple[Tuple[int, int], ...]   # (wire, row) each
+    hasher_name: str = POSEIDON_CONFIG.name
+
+    def hasher(self):
+        """The hasher configuration of the circuit's trees and
+        transcript (hash/hashers.py)."""
+        return hasher_by_name(self.hasher_name)
 
     def constants_range(self) -> range:
         return range(0, self.num_constants)
@@ -87,7 +94,8 @@ class ProverData:
             circuit_digest=tuple(int(x) for x in prover_only.circuit_digest),
             public_input_wires=public_input_wires(
                 prover_only.public_inputs, prover_only.representative_map,
-                shape.num_wires, shape.degree))
+                shape.num_wires, shape.degree),
+            hasher_name=common.hasher_name)
 
 
 def fri_instance(sizes, degree_bits: int, num_challenges: int,

@@ -1,7 +1,8 @@
 """The PLONK verifier (the port's copy of plonky2_tpu/plonk/verifier.py;
 reference plonky2/src/plonk/verifier.rs): the transcript replayed from the
 proof, the vanishing polynomial at zeta against the quotient's opened
-chunks, then the FRI proof of every opening.  Host Python throughout."""
+chunks, then the FRI proof of every opening, with the hasher the circuit
+names (its transcript and its Merkle paths).  Host Python throughout."""
 from __future__ import annotations
 
 from ..field import extension as ge
@@ -79,4 +80,5 @@ def verify_with_challenges(proof, public_inputs_hash, challenges,
     verify_fri_proof(common_data.get_fri_instance(zeta),
                      proof.openings.to_fri_openings(),
                      challenges.fri_challenges, merkle_caps,
-                     proof.opening_proof, common_data.fri_params)
+                     proof.opening_proof, common_data.fri_params,
+                     common_data.hasher())

@@ -8,7 +8,10 @@ committing it again.  ``prove`` generates the witness on the session's
 device with the circuit's witness plan (iop/device_witness.py; the host
 engine, iop/generator.py, only for a circuit the plan refuses, as in the
 JAX package's prover), then runs the proof's phases 2-8 there; ``verify``
-runs the port's verifier.
+runs the port's verifier.  The witness does not depend on the hasher, so
+a circuit under the Keccak configuration gets its plan as any other
+(the JAX package runs its whole non-algebraic prover, witness included,
+on the host; the port keeps the LDE, quotient and folds on the device).
 
 The session compiles the circuit's quotient program
 (plonk/quotient_program.py:build_quotient_program), once, as the JAX

@@ -121,7 +121,7 @@ def test_stark_circuit_constraints(stark: Stark, rng=None,
     builder.connect_extension(circuit_eval,
                               builder.constant_extension(native_eval))
 
-    session = ProverSession(builder.build(device), device)
+    session = ProverSession(builder.build(device=device), device)
     session.verify(session.prove(pw))
 
 

@@ -133,7 +133,7 @@ def main() -> int:
         b, pt = stark_wrapper_builder(stark, config, chip_smoke.FIB_LOG_N)
         pw = PartialWitness()
         srv.set_stark_proof_with_pis_target(pw, pt, sproof)
-        prove("fib_wrapper", b.build(dev), pw)
+        prove("fib_wrapper", b.build(device=dev), pw)
 
     if "memory_wrapper" in parts:
         from plonky2_tpu_torch.evm import all_stark

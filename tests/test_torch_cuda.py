@@ -469,6 +469,28 @@ def test_commit_on_card_matches_cpu(dev):
                                   cpu.merkle_tree.cap.digests)
 
 
+def test_keccak_commit_on_card_matches_cpu(dev):
+    """The Keccak configuration's commitment: the LDE on the card (its
+    leaves stay there), the tree hashed on the host; equal to the CPU's,
+    and no Poseidon kernel launched."""
+    from plonky2_tpu_torch.hash.hashers import KECCAK_CONFIG
+    v = np.random.default_rng(9).integers(0, P, size=(6, 1 << 9),
+                                          dtype=np.uint64)
+    before = (pc.hash_leaves_cols_cuda.launches, nc.ntt_cols_cuda.launches)
+    card = PolynomialBatch.from_values(v, 3, False, 2, device=dev,
+                                       hasher=KECCAK_CONFIG)
+    assert card.leaves_dev.device.type == "cuda"
+    assert pc.hash_leaves_cols_cuda.launches == before[0]
+    assert nc.ntt_cols_cuda.launches > before[1]
+    cpu = PolynomialBatch.from_values(v, 3, False, 2, device="cpu",
+                                      hasher=KECCAK_CONFIG)
+    np.testing.assert_array_equal(card.leaves, cpu.leaves)
+    np.testing.assert_array_equal(card.merkle_tree.cap.digests,
+                                  cpu.merkle_tree.cap.digests)
+    assert [list(map(int, s)) for s in card.merkle_tree.prove(77).siblings] \
+        == [list(map(int, s)) for s in cpu.merkle_tree.prove(77).siblings]
+
+
 def test_cpu_tensor_without_device_runs_on_card(dev):
     v = torch.from_numpy(np.random.default_rng(8).integers(
         0, P, size=(6, 1 << 9), dtype=np.uint64).view(np.int64))
